@@ -10,9 +10,14 @@ Run from the repository root on a machine with a CUDA card:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: every CUDA kernel of the forward path, compiled from ``csrc/``
-   for sm_90a, all sources in parallel.
+   for sm_90a, all sources in parallel; then every CUDA runtime the process
+   has mapped once both libraries are loaded.
 3. Kernels against their plain PyTorch versions, at the main path's
-   shapes, with the tolerance stated; kernel, plain and library times.
+   shapes (SSIM also at shapes that reach every edge of its tiling), with
+   the tolerance stated; kernel, plain and library times. ``ms`` is CUDA
+   events around back-to-back wrapper calls; ``device_ms`` is the kernel's
+   own device time per launch (torch.profiler, or a CUDA graph of the
+   launches replayed under CUDA events where the profiler records none).
 4. The slice at full width: ResNet-18 DispNet and PoseNet from a seeded
    ``torch.Generator``, depth inference on [4, 256, 832, 3], then the
    photometric validation step on a B=4, N=2 snippet at 832x256. Both
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import ctypes
 import json
 import subprocess
 import sys
@@ -78,6 +84,48 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, kernel: str, iters: int = KERNEL_ITERS):
+    """(ms, how): the device time per launch of the kernel whose name holds
+    ``kernel``, over ``iters`` back-to-back calls of ``fn`` (one launch
+    each). torch.profiler first; where it records no such launches, a CUDA
+    graph of the calls replayed under CUDA events, which leaves the host out
+    too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in hits)
+    us = sum(e.self_device_time_total for e in hits)
+    if launches == iters and us > 0:
+        return us / launches / 1e3, "profiler"
+    log(f"  {kernel}: the profiler recorded {launches} of {iters} launches; "
+        "timing a CUDA graph of them instead")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, "cuda_graph"
+
+
 def bound(n_bytes: float, n_flops: float):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the fp32 rate."""
@@ -105,8 +153,22 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    secs = _build.build(["warp_sample", "ssim"], verbose=True, force=True)
+    names = ("warp_sample", "ssim")
+    secs = _build.build(names, verbose=True, force=True)
     log(f"[build] warp_sample.cu + ssim.cu for sm_90a in {secs:.1f} s (parallel nvcc)")
+    for name in names:
+        _build.load(name)
+    with open("/proc/self/maps") as maps:
+        runtimes = sorted({line.split()[-1] for line in maps if "libcudart" in line})
+    log(f"[build] CUDA runtimes mapped with both kernel libraries loaded: {runtimes}")
+    for name in names:
+        try:
+            ldd = subprocess.run(["ldd", str(_build.library_path(name))], capture_output=True,
+                                 text=True, timeout=60).stdout
+            linked = [ln.strip() for ln in ldd.splitlines() if "libcudart" in ln]
+        except FileNotFoundError:
+            linked = ["ldd not found: not measured"]
+        log(f"[build] {name}: libcudart needed {linked or ['none (linked statically)']}")
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -156,6 +218,7 @@ def warp_phase(rng: np.random.RandomState) -> dict:
     log(f"  warp_sample vs F.grid_sample (yardstick only): max|err| {lib_err:.3e}")
 
     ms = cuda_ms(lambda: warp_sample(src, coords, "zeros"), KERNEL_ITERS)
+    dev_ms, dev_by = device_ms(lambda: warp_sample(src, coords, "zeros"), "warp_sample")
     plain_ms = cuda_ms(lambda: warp_sample_plain(src, coords, "zeros"), KERNEL_ITERS // 5)
     library_ms = cuda_ms(lambda: F.grid_sample(src_nchw, coords, mode="bilinear",
                                                padding_mode="zeros", align_corners=False),
@@ -163,41 +226,85 @@ def warp_phase(rng: np.random.RandomState) -> dict:
     pixels = PAIRS * H * W
     n_bytes = coords.numel() * 4 + src.numel() * 4 + pixels * 4 * 4
     bound_ms, bound_by = bound(n_bytes, pixels * (30 + 4 * 7))
-    log(f"  warp_sample [{PAIRS},{H},{W},4]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"F.grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  warp_sample [{PAIRS},{H},{W},4]: kernel {ms:.4f} ms (events), device "
+        f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), plain "
+        f"{plain_ms:.4f} ms, F.grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by})")
     return {"name": "warp_sample", "route": "cuda",
             "source": "sc_sfmlearner_release_tpu_torch/csrc/warp_sample.cu",
             "replaces": "tools/bench_pallas_warp.py:45",
-            "max_abs_err": err, "tolerance": KERNEL_TOL, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tolerance": KERNEL_TOL, "ms": ms, "device_ms": dev_ms,
+            "device_ms_by": dev_by, "bound_share": bound_ms / dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+# Shapes that reach every edge of the SSIM kernel's tiling, beside the main
+# path's: W % 4 != 0 (one column per lane), W narrower than one strip, a
+# ragged last strip, H = W = 2; H is not a multiple of the rows per warp at
+# the main shape and at [1,3,256,834]. ssim_phase adds an input that is not
+# 16-byte aligned.
+SSIM_EDGE_SHAPES = ((2, 3, 37, 53), (1, 3, 256, 834), (2, 3, 40, 64), (3, 3, 100, 200),
+                    (1, 3, 2, 2), (1, 1, 2, 4))
+
+
+def ssim_plan(x: torch.Tensor, y: torch.Tensor) -> str:
+    """The SSIM launch's geometry for these inputs, as ``ssim_fwd`` makes it."""
+    lib = _build.load("ssim")
+    lib.ssim_plan.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ssim_plan.restype = ctypes.c_int
+    plan = (ctypes.c_int * 5)()
+    f, c, h, w = x.shape
+    # The output is a fresh allocation, aligned as the wrapper's is (0 stands for it).
+    code = lib.ssim_plan(x.data_ptr(), y.data_ptr(), 0, f * c, h, w, plan)
+    _build.check(lib, code, "ssim_plan")
+    return (f"{plan[0]} column(s) per lane, {plan[1]} warps per block, {plan[2]} strip(s) "
+            f"per row, {plan[3]} rows per warp, {plan[4]} blocks")
 
 
 def ssim_phase(rng: np.random.RandomState) -> dict:
     dev = torch.device(DEVICE)
     shape = (PAIRS, 3, H, W)
+    err = 0.0
+    offset = (1, 2, 64, 128)
+    cases = [(shape, False), *((s, False) for s in SSIM_EDGE_SHAPES), (offset, True)]
+    for case, misaligned in cases:
+        n = int(np.prod(case))
+        x = torch.from_numpy(rng.rand(n + 1).astype(np.float32)).to(dev)
+        x = x[1:].view(case) if misaligned else x[:n].view(case)
+        noise = torch.from_numpy((rng.randn(*case) * 0.05).astype(np.float32)).to(dev)
+        indep = torch.from_numpy(rng.rand(*case).astype(np.float32)).to(dev)
+        tag = f"[{','.join(map(str, case))}]{' offset by 4 B' if misaligned else ''}"
+        log(f"  ssim_nchw {tag}: {ssim_plan(x, indep)}")
+        for label, y in (("independent", indep), ("correlated", (x + noise).clamp(0.0, 1.0))):
+            got = ssim_nchw(x, y)
+            want = ssim_nchw_plain(x, y)
+            torch.cuda.synchronize()
+            err = max(err, check_close(f"ssim_nchw {tag} {label}", got, want, KERNEL_TOL))
+
     x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
     noise = torch.from_numpy((rng.randn(*shape) * 0.05).astype(np.float32)).to(dev)
-    err = 0.0
-    for label, y in (("independent", torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)),
-                     ("correlated", (x + noise).clamp(0.0, 1.0))):
-        got = ssim_nchw(x, y)
-        want = ssim_nchw_plain(x, y)
-        torch.cuda.synchronize()
-        err = max(err, check_close(f"ssim_nchw {label}", got, want, KERNEL_TOL))
     y = (x + noise).clamp(0.0, 1.0)
     ms = cuda_ms(lambda: ssim_nchw(x, y), KERNEL_ITERS)
+    dev_ms, dev_by = device_ms(lambda: ssim_nchw(x, y), "ssim_kernel")
     plain_ms = cuda_ms(lambda: ssim_nchw_plain(x, y), KERNEL_ITERS // 5)
+    # What one PyTorch kernel takes to stream the same bytes: a yardstick of
+    # the memory rate a kernel reaches here, not the same function.
+    z = torch.empty_like(x)
+    stream_ms, _ = device_ms(lambda: torch.add(x, y, out=z), "elementwise_kernel")
     n = x.numel()
     bound_ms, bound_by = bound(3 * n * 4, n * (9 * 8 + 20))
-    log(f"  ssim_nchw [{PAIRS},3,{H},{W}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by})")
+    log(f"  ssim_nchw [{PAIRS},3,{H},{W}]: kernel {ms:.4f} ms (events), device "
+        f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); torch.add of x and y "
+        f"(the same bytes) {stream_ms:.4f} ms")
     return {"name": "ssim_nchw", "route": "cuda",
             "source": "sc_sfmlearner_release_tpu_torch/csrc/ssim.cu",
             "replaces": "sc_sfmlearner_release_tpu/ops/pallas_ssim.py:47",
-            "max_abs_err": err, "tolerance": KERNEL_TOL, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "tolerance": KERNEL_TOL, "ms": ms, "device_ms": dev_ms,
+            "device_ms_by": dev_by, "bound_share": bound_ms / dev_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-            "library_ms": None}
+            "library_ms": None, "stream_ms": stream_ms}
 
 
 def make_batch(rng: np.random.RandomState) -> dict:

@@ -8,6 +8,8 @@ with the compiler's output: there is no fallback.
 
 ``-fmad=false`` keeps the compiler from contracting a multiply and an add
 into one rounding, so the kernels round as their plain PyTorch versions do.
+``-cudart shared`` links the kernels against the shared CUDA runtime, so
+the process holds one runtime: the one PyTorch has already loaded.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-fmad=false", "-cudart", "shared", "-shared", "-Xcompiler", "-fPIC",
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}

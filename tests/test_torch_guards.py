@@ -18,6 +18,7 @@ from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
 from sc_sfmlearner_release_tpu_torch.ops import _build
 from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw
 from sc_sfmlearner_release_tpu_torch.ops.warp import warp_sample
+from sc_sfmlearner_release_tpu_torch.tools import ssim_variants
 from sc_sfmlearner_release_tpu_torch.training import make_eval_step, make_inference_fn
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -116,6 +117,18 @@ def test_kernel_sources_name_what_they_replace(name, replaces):
     text = (PORT_DIR / "csrc" / f"{name}.cu").read_text()
     assert replaces in text and "Bound: bytes" in text
     assert "cudaGetLastError" in text and 'extern "C"' in text
+
+
+def test_ssim_variants_still_apply_to_the_kernel_source():
+    sources = ssim_variants.variant_sources()
+    assert set(sources) == set(ssim_variants.VARIANTS)
+    for name, src in sources.items():
+        assert (src == sources["kernel"]) == (name == "kernel"), name
+
+
+def test_ssim_variants_fail_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert ssim_variants.main([]) != 0
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

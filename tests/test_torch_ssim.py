@@ -33,7 +33,8 @@ def _pair(shape, seed, correlated):
 
 
 @pytest.mark.parametrize("seed", [0, 3])
-@pytest.mark.parametrize("shape", [(4, 3, 16, 24), (2, 1, 7, 5)])
+@pytest.mark.parametrize("shape", [(4, 3, 16, 24), (2, 1, 7, 5),
+                                   (1, 3, 37, 53), (2, 1, 2, 2), (1, 3, 70, 131)])
 def test_ssim_nchw_matches_jax(shape, seed):
     x, y = _pair(shape, seed, correlated=False)
     ref = np.asarray(jssim_nchw(jnp.asarray(x), jnp.asarray(y)))
