@@ -5,26 +5,37 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--profile]
 
-``--profile`` adds the validation step's device time by kernel group
-(torch.profiler) after phase 4. Phases, each of which fails the run (non-zero exit) when it fails:
+``--profile`` adds the validation and train steps' device time by kernel
+group (torch.profiler). Phases, each of which fails the run (non-zero exit)
+when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
-2. Build: every CUDA kernel of the forward path, compiled from ``csrc/``
-   for sm_90a, all sources in parallel; then every CUDA runtime the process
-   has mapped once both libraries are loaded.
-3. Kernels against their plain PyTorch versions, at the main path's
-   shapes (SSIM also at shapes that reach every edge of its tiling), with
-   the tolerance stated; kernel, plain and library times. ``ms`` is CUDA
-   events around back-to-back wrapper calls; ``device_ms`` is the kernel's
-   own device time per launch (torch.profiler, or a CUDA graph of the
-   launches replayed under CUDA events where the profiler records none).
-4. The slice at full width: ResNet-18 DispNet and PoseNet from a seeded
-   ``torch.Generator``, depth inference on [4, 256, 832, 3], then the
-   photometric validation step on a B=4, N=2 snippet at 832x256. Both
-   kernels must launch during it. The same step in fp32 (TF32 off) must
-   match the CPU run of the plain versions; the bf16 default is timed.
-5. Output: a ``{"kernels": [...]}`` line, the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+2. Build: every CUDA kernel of the port, compiled from ``csrc/`` for
+   sm_90a, one nvcc per source, all started together; then every CUDA
+   runtime the process has mapped once the libraries are loaded.
+3. Kernels against their plain PyTorch versions at the main path's shapes,
+   with the tolerance stated: the warp and SSIM forwards (SSIM also at
+   shapes that reach every edge of its tiling), and the two backward
+   kernels against autograd through the plain versions (the warp's
+   d(coords) and d(source depth) in both padding modes on projected and
+   random coordinates; SSIM's d/dy and d/dx at every SSIM shape). Kernel,
+   plain and library or stream times. ``ms`` is CUDA events around
+   back-to-back wrapper calls; ``device_ms`` is the kernel's own device time
+   per call (torch.profiler, or a CUDA graph of the calls replayed under
+   CUDA events where the profiler records none).
+4. Slices 1-2's paths at full width: ResNet-18 DispNet and PoseNet from a
+   seeded ``torch.Generator``, depth inference on [4, 256, 832, 3] and the
+   photometric validation step on a B=4, N=2 snippet at 832x256, each with
+   the launch counts at 0 just before it; the fp32 validation step against
+   the CPU; times.
+5. The main path, the train step at full width (B=4, N=2, 832x256, bf16
+   convolutions, Adam): one step with the launch counts at 0, in which all
+   four kernels must launch; then 8 more steps with finite losses; median
+   step time fed a numpy batch and with the batch on the card; peak memory.
+   Then the fp32 train step on the card against the CPU's plain step at
+   B2 N2 128x416 (full-width ResNet-18): losses and every gradient.
+6. Output: a ``{"kernels": [...]}`` line (launches per train step), the
+   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
 
 Without a card it exits non-zero and prints no result.
 """
@@ -47,22 +58,38 @@ from sc_sfmlearner_release_tpu_torch import disable_tf32
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
 from sc_sfmlearner_release_tpu_torch.ops import _build
 from sc_sfmlearner_release_tpu_torch.ops.geometry import project_pixel_coords
-from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw, ssim_nchw_plain
-from sc_sfmlearner_release_tpu_torch.ops.warp import warp_sample, warp_sample_plain
+from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw, ssim_nchw_bwd, ssim_nchw_plain
+from sc_sfmlearner_release_tpu_torch.ops.warp import (
+    warp_sample, warp_sample_bwd, warp_sample_plain,
+)
 from sc_sfmlearner_release_tpu_torch.training import (
-    LossConfig, make_eval_step, make_inference_fn,
+    LossConfig, create_train_state, make_eval_step, make_inference_fn, make_optimizer,
+    make_train_step,
 )
 
 DEVICE = "cuda"
 B, N, H, W = 4, 2, 256, 832
 PAIRS = 2 * N * B
 KERNEL_TOL = 1e-5   # abs: the same fp32 arithmetic, rounded in another order
+# Backward kernels, max|err| over max|ref|: the same derivative as autograd
+# through the plain version, summed in another order (the warp's d(source)
+# with atomics, in an order that changes from run to run).
+GRAD_TOL = 1e-5
 STEP_RTOL = 1e-3    # rel: cuDNN and the CPU sum the convolutions in another order
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 METRICS = ("loss", "photo_loss", "geometry_loss", "smooth_loss")
 KERNEL_ITERS = 50   # timed launches per kernel
 STEP_ITERS = 10     # timed steps per entry point
+TRAIN_STEPS = 8     # bf16 train steps whose losses must stay finite
+CHECK_SHAPE = (2, 2, 128, 416)  # B, N, H, W of the fp32 card-vs-CPU train step
+# Gradients of the fp32 card step against the CPU's, relative L2 per tensor.
+# At random init they are kinky: BatchNorm on batch statistics spreads every
+# ReLU kink and mask flip over a channel, and the loss's masks flip pixels.
+# On the CPU alone, perturbing the frames by 1e-6 moves them at this shape
+# by up to 1.8e-2 (encoders) and 7.9e-3 (decoders and heads), two trials;
+# the tolerances are about twice that.
+GRAD_RTOL = {"encoders": 3e-2, "decoders": 1.5e-2}
 
 
 def log(msg: str) -> None:
@@ -84,32 +111,40 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters: int = KERNEL_ITERS):
-    """(ms, how): the device time per launch of the kernel whose name holds
-    ``kernel``, over ``iters`` back-to-back calls of ``fn`` (one launch
-    each). torch.profiler first; where it records no such launches, a CUDA
-    graph of the calls replayed under CUDA events, which leaves the host out
-    too."""
+def device_ms(fn, kernel, iters: int = KERNEL_ITERS):
+    """(ms, how): the device time per call of the kernels whose names hold
+    ``kernel`` (a string, or a tuple of them: each must run once per call),
+    over ``iters`` back-to-back calls of ``fn``. torch.profiler first; where
+    it records no such launches, a CUDA graph of the calls replayed under
+    CUDA events, which leaves the host out too."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (kernel,) if isinstance(kernel, str) else tuple(kernel)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in hits)
-    us = sum(e.self_device_time_total for e in hits)
-    if launches == iters and us > 0:
-        return us / launches / 1e3, "profiler"
-    log(f"  {kernel}: the profiler recorded {launches} of {iters} launches; "
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = [sum(e.count for e in events if n in e.key) for n in names]
+    us = sum(e.self_device_time_total for e in events if any(n in e.key for n in names))
+    if all(c == iters for c in counts) and us > 0:
+        return us / iters / 1e3, "profiler"
+    log(f"  {names}: the profiler recorded {counts} of {iters} launches each; "
         "timing a CUDA graph of them instead")
+    return graph_ms(fn, iters), "cuda_graph"
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph (after three on a side stream), replayed under CUDA events. The
+    host's dispatch stays out, so this is the device's own time."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for _ in range(3):
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -123,7 +158,7 @@ def device_ms(fn, kernel: str, iters: int = KERNEL_ITERS):
     graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters, "cuda_graph"
+    return start.elapsed_time(end) / iters
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -153,9 +188,10 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    names = ("warp_sample", "ssim")
+    names = ("warp_sample", "ssim", "ssim_bwd")
     secs = _build.build(names, verbose=True, force=True)
-    log(f"[build] warp_sample.cu + ssim.cu for sm_90a in {secs:.1f} s (parallel nvcc)")
+    log(f"[build] {' + '.join(n + '.cu' for n in names)} for sm_90a in {secs:.1f} s "
+        "(parallel nvcc)")
     for name in names:
         _build.load(name)
     with open("/proc/self/maps") as maps:
@@ -181,12 +217,27 @@ def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) ->
     return err
 
 
-def warp_phase(rng: np.random.RandomState) -> dict:
+def check_rel(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    """max|got - want| over max|want|: for gradients, whose scale follows
+    the inputs (d(coords) is ~W/2 times a source difference)."""
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item() / max(scale, 1e-30)
+    log(f"  {name}: max|err|/max|ref| {err:.3e} (tol {tol:.0e}, max|ref| {scale:.3e})")
+    if not (err <= tol and torch.isfinite(got).all().item()):
+        raise AssertionError(f"{name}: max|err|/max|ref| {err:.3e} > {tol:.0e}")
+    return err
+
+
+def warp_inputs(rng: np.random.RandomState) -> dict:
+    """The warp's inputs at the main path's shapes: a packed [depth, RGB]
+    source, and per padding mode the slice's own projection (smooth target
+    depth, small motions) beside random coordinates with out-of-range
+    values, exact 2.0 and +-1."""
     dev = torch.device(DEVICE)
     depth = rng.uniform(1.0, 80.0, (PAIRS, H, W, 1)).astype(np.float32)
     rgb = rng.rand(PAIRS, H, W, 3).astype(np.float32)
-    src = torch.from_numpy(np.concatenate([depth, rgb], -1)).to(dev)
-    # The slice's own projection: smooth target depth, small motions.
     tgt_depth = torch.from_numpy(
         np.repeat(np.linspace(4.0, 60.0, H, dtype=np.float32)[None, :, None, None], W, 2)
         .repeat(PAIRS, 0)).to(dev)
@@ -199,18 +250,24 @@ def warp_phase(rng: np.random.RandomState) -> dict:
     rand[:, 1, :, :] = 1.0
     rand[:, 2, :, :] = -1.0
     rand_coords = torch.from_numpy(rand).to(dev)
-
-    err = 0.0
+    cases = []
     for mode in ("zeros", "border"):
         proj_coords, _ = project_pixel_coords(tgt_depth, pose, intr, mode)
-        for label, coords in (("projected", proj_coords.contiguous()), ("random", rand_coords)):
-            got = warp_sample(src, coords, mode)
-            want = warp_sample_plain(src, coords, mode)
-            torch.cuda.synchronize()
-            err = max(err, check_close(f"warp_sample {mode}/{label}", got, want, KERNEL_TOL))
+        cases += [(mode, "projected", proj_coords.contiguous()), (mode, "random", rand_coords)]
+    return {"depth": torch.from_numpy(depth).to(dev), "rgb": torch.from_numpy(rgb).to(dev),
+            "src": torch.from_numpy(np.concatenate([depth, rgb], -1)).to(dev), "cases": cases}
 
-    coords, _ = project_pixel_coords(tgt_depth, pose, intr, "zeros")
-    coords = coords.contiguous()
+
+def warp_phase(inputs: dict) -> dict:
+    src = inputs["src"]
+    err = 0.0
+    for mode, label, coords in inputs["cases"]:
+        got = warp_sample(src, coords, mode)
+        want = warp_sample_plain(src, coords, mode)
+        torch.cuda.synchronize()
+        err = max(err, check_close(f"warp_sample {mode}/{label}", got, want, KERNEL_TOL))
+
+    coords = inputs["cases"][0][2]
     src_nchw = src.permute(0, 3, 1, 2).contiguous()
     lib_out = F.grid_sample(src_nchw, coords, mode="bilinear", padding_mode="zeros",
                             align_corners=False)
@@ -239,6 +296,77 @@ def warp_phase(rng: np.random.RandomState) -> dict:
             "library_ms": library_ms}
 
 
+def plain_grads(fn, inputs, dout):
+    """Autograd through a plain version: ``(grads, again)``, where ``again()``
+    reruns only the backward of the same graph (for timing)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+    return grads, lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def warp_bwd_check(inputs: dict, rng: np.random.RandomState) -> float:
+    """The backward kernel against autograd through the plain version, for
+    d(coords) and d(source depth), and once through the autograd Function."""
+    depth, rgb, src = inputs["depth"], inputs["rgb"], inputs["src"]
+    dout = torch.from_numpy(rng.randn(PAIRS, H, W, 4).astype(np.float32)).to(DEVICE)
+    err = 0.0
+    for mode, label, coords in inputs["cases"]:
+        dsrc, dcoords = warp_sample_bwd(src, coords, dout, mode, 1, True)
+        (want_d, want_c), _ = plain_grads(
+            lambda d, c: warp_sample_plain(d, c, mode, frozen=rgb), (depth, coords), dout)
+        torch.cuda.synchronize()
+        err = max(err, check_rel(f"warp_sample_bwd {mode}/{label} d(coords)", dcoords, want_c,
+                                 GRAD_TOL))
+        err = max(err, check_rel(f"warp_sample_bwd {mode}/{label} d(depth)", dsrc, want_d,
+                                 GRAD_TOL))
+    mode, label, coords = inputs["cases"][0]
+    d = depth.clone().requires_grad_(True)
+    c = coords.clone().requires_grad_(True)
+    got_d, got_c = torch.autograd.grad(warp_sample(d, c, mode, frozen=rgb), (d, c), dout)
+    (want_d, want_c), _ = plain_grads(
+        lambda d, c: warp_sample_plain(d, c, mode, frozen=rgb), (depth, coords), dout)
+    err = max(err, check_rel(f"warp_sample autograd Function {mode}/{label} d(coords)",
+                             got_c, want_c, GRAD_TOL))
+    err = max(err, check_rel(f"warp_sample autograd Function {mode}/{label} d(depth)",
+                             got_d, want_d, GRAD_TOL))
+    return err
+
+
+def warp_bwd_phase(inputs: dict, rng: np.random.RandomState) -> dict:
+    err = warp_bwd_check(inputs, rng)
+    src, rgb, depth = inputs["src"], inputs["rgb"], inputs["depth"]
+    coords = inputs["cases"][0][2]
+    dout = torch.from_numpy(rng.randn(PAIRS, H, W, 4).astype(np.float32)).to(DEVICE)
+    call = lambda: warp_sample_bwd(src, coords, dout, "zeros", 1, True)
+    ms = cuda_ms(call, KERNEL_ITERS)
+    dev_ms, dev_by = device_ms(call, ("warp_sample_bwd", "Memset"))
+    _, plain = plain_grads(lambda d, c: warp_sample_plain(d, c, "zeros", frozen=rgb),
+                           (depth, coords), dout)
+    plain_ms = cuda_ms(plain, KERNEL_ITERS // 5)
+    # Yardstick: F.grid_sample's backward for its input (all 4 channels) and grid.
+    _, library = plain_grads(
+        lambda s, c: F.grid_sample(s, c, mode="bilinear", padding_mode="zeros",
+                                   align_corners=False),
+        (src.permute(0, 3, 1, 2).contiguous(), coords), dout.permute(0, 3, 1, 2))
+    library_ms = cuda_ms(library, KERNEL_ITERS)
+    pixels = PAIRS * H * W
+    # Read dout, coords and the source once; write d(coords) and d(depth) once.
+    n_bytes = pixels * (4 * 4 + 8 + 4 * 4 + 8 + 4)
+    bound_ms, bound_by = bound(n_bytes, pixels * (30 + 4 * 8 + 20 + 4 * 2))
+    log(f"  warp_sample_bwd [{PAIRS},{H},{W},4] -> d(coords), d(depth): kernel {ms:.4f} ms "
+        f"(events), device {dev_ms:.4f} ms with its zero fill ({dev_by}, "
+        f"{100 * bound_ms / dev_ms:.0f}% of bound), plain (autograd) {plain_ms:.4f} ms, "
+        f"F.grid_sample backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+    return {"name": "warp_sample_bwd", "route": "cuda",
+            "source": "sc_sfmlearner_release_tpu_torch/csrc/warp_sample.cu",
+            "replaces": "sc_sfmlearner_release_tpu/ops/warp_band.py:438",
+            "max_abs_err": err, "max_err_is": "relative to max|ref|", "tolerance": GRAD_TOL,
+            "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by,
+            "bound_share": bound_ms / dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_us": bound_ms * 1e3, "bound_by": bound_by, "library_ms": library_ms}
+
+
 # Shapes that reach every edge of the SSIM kernel's tiling, beside the main
 # path's: W % 4 != 0 (one column per lane), W narrower than one strip, a
 # ragged last strip, H = W = 2; H is not a multiple of the rows per warp at
@@ -262,12 +390,12 @@ def ssim_plan(x: torch.Tensor, y: torch.Tensor) -> str:
             f"per row, {plan[3]} rows per warp, {plan[4]} blocks")
 
 
-def ssim_phase(rng: np.random.RandomState) -> dict:
+def ssim_cases(rng: np.random.RandomState):
+    """(tag, x, [(label, y), ...]) at the main path's shape, the edge shapes
+    and an input 4 bytes off alignment; y independent of x, and correlated."""
     dev = torch.device(DEVICE)
-    shape = (PAIRS, 3, H, W)
-    err = 0.0
     offset = (1, 2, 64, 128)
-    cases = [(shape, False), *((s, False) for s in SSIM_EDGE_SHAPES), (offset, True)]
+    cases = [((PAIRS, 3, H, W), False), *((s, False) for s in SSIM_EDGE_SHAPES), (offset, True)]
     for case, misaligned in cases:
         n = int(np.prod(case))
         x = torch.from_numpy(rng.rand(n + 1).astype(np.float32)).to(dev)
@@ -275,8 +403,16 @@ def ssim_phase(rng: np.random.RandomState) -> dict:
         noise = torch.from_numpy((rng.randn(*case) * 0.05).astype(np.float32)).to(dev)
         indep = torch.from_numpy(rng.rand(*case).astype(np.float32)).to(dev)
         tag = f"[{','.join(map(str, case))}]{' offset by 4 B' if misaligned else ''}"
-        log(f"  ssim_nchw {tag}: {ssim_plan(x, indep)}")
-        for label, y in (("independent", indep), ("correlated", (x + noise).clamp(0.0, 1.0))):
+        yield tag, x, (("independent", indep), ("correlated", (x + noise).clamp(0.0, 1.0)))
+
+
+def ssim_phase(rng: np.random.RandomState) -> dict:
+    dev = torch.device(DEVICE)
+    shape = (PAIRS, 3, H, W)
+    err = 0.0
+    for tag, x, ys in ssim_cases(rng):
+        log(f"  ssim_nchw {tag}: {ssim_plan(x, ys[0][1])}")
+        for label, y in ys:
             got = ssim_nchw(x, y)
             want = ssim_nchw_plain(x, y)
             torch.cuda.synchronize()
@@ -307,19 +443,78 @@ def ssim_phase(rng: np.random.RandomState) -> dict:
             "library_ms": None, "stream_ms": stream_ms}
 
 
+def ssim_bwd_check(rng: np.random.RandomState) -> float:
+    """The backward kernel against autograd through the plain version, for
+    d/dy alone (the main path's call) and d/dx with d/dy, at every SSIM case;
+    and once through the autograd Function."""
+    err = 0.0
+    for tag, x, ys in ssim_cases(rng):
+        g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(DEVICE)
+        for label, y in ys:
+            (want_x, want_y), _ = plain_grads(ssim_nchw_plain, (x, y), g)
+            _, dy_only = ssim_nchw_bwd(x, y, g)
+            dx, dy = ssim_nchw_bwd(x, y, g, need_x=True)
+            torch.cuda.synchronize()
+            name = f"ssim_nchw_bwd {tag} {label}"
+            err = max(err, check_rel(f"{name} d/dy alone", dy_only, want_y, GRAD_TOL))
+            err = max(err, check_rel(f"{name} d/dy", dy, want_y, GRAD_TOL))
+            err = max(err, check_rel(f"{name} d/dx", dx, want_x, GRAD_TOL))
+    y = ys[1][1].clone().requires_grad_(True)
+    got_y, = torch.autograd.grad(ssim_nchw(x, y), (y,), g)
+    (_, want_y), _ = plain_grads(ssim_nchw_plain, (x, y), g)
+    return max(err, check_rel(f"ssim_nchw autograd Function {tag} d/dy", got_y, want_y, GRAD_TOL))
+
+
+def ssim_bwd_phase(rng: np.random.RandomState) -> dict:
+    err = ssim_bwd_check(rng)
+    shape = (PAIRS, 3, H, W)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(DEVICE)
+    noise = torch.from_numpy((rng.randn(*shape) * 0.05).astype(np.float32)).to(DEVICE)
+    y = (x + noise).clamp(0.0, 1.0)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(DEVICE)
+    call = lambda: ssim_nchw_bwd(x, y, g)
+    ms = cuda_ms(call, KERNEL_ITERS)
+    dev_ms, dev_by = device_ms(call, "ssim_bwd_kernel")
+    dx_ms, _ = device_ms(lambda: ssim_nchw_bwd(x, y, g, need_x=True), "ssim_bwd_kernel")
+    _, plain = plain_grads(lambda b: ssim_nchw_plain(x, b), (y,), g)
+    plain_ms = cuda_ms(plain, KERNEL_ITERS // 5)
+    # The same bytes through one PyTorch kernel: read x, y, g, write one map.
+    z = torch.empty_like(x)
+    stream_ms, _ = device_ms(lambda: torch.addcmul(x, y, g, out=z), "elementwise")
+    n = x.numel()
+    bound_ms, bound_by = bound(4 * n * 4, n * (9 * 8 + 60 + 3 * 18 + 6))
+    log(f"  ssim_nchw_bwd [{PAIRS},3,{H},{W}] -> d/dy: kernel {ms:.4f} ms (events), device "
+        f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), with d/dx "
+        f"too {dx_ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}); torch.addcmul of x, y, g (the same bytes) {stream_ms:.4f} ms")
+    return {"name": "ssim_nchw_bwd", "route": "cuda",
+            "source": "sc_sfmlearner_release_tpu_torch/csrc/ssim_bwd.cu",
+            "replaces": "sc_sfmlearner_release_tpu/ops/pallas_ssim.py:150",
+            "max_abs_err": err, "max_err_is": "relative to max|ref|", "tolerance": GRAD_TOL,
+            "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by,
+            "bound_share": bound_ms / dev_ms, "dx_dy_device_ms": dx_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+            "library_ms": None, "stream_ms": stream_ms}
+
+
 def make_batch(rng: np.random.RandomState) -> dict:
     return {"tgt": rng.rand(B, H, W, 3).astype(np.float32),
             "refs": rng.rand(B, N, H, W, 3).astype(np.float32),
             "intrinsics": kitti_intrinsics(B)}
 
 
-# First match wins: cuDNN's BatchNorm and layout kernels before its convolutions.
+# First match wins: the backward kernels before the forwards, cuDNN's
+# BatchNorm and layout kernels before its convolutions.
 KERNEL_GROUPS = (
+    ("warp_sample_bwd", ("warp_sample_bwd",)),
     ("warp_sample", ("warp_sample",)),
+    ("ssim_bwd", ("ssim_bwd_kernel",)),
     ("ssim", ("ssim_kernel",)),
-    ("batch_norm", ("batch_norm", "bn_fw")),
+    ("batch_norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("layout", ("nchwtonhwc", "nhwctonchw")),
-    ("conv/gemm", ("conv", "xmma", "cudnn", "gemm", "implicit", "winograd", "fft")),
+    ("conv/gemm", ("conv", "xmma", "cudnn", "gemm", "implicit", "winograd", "fft", "dgrad",
+                   "wgrad")),
+    ("optimizer", ("multi_tensor", "adam")),
     ("copy/cast", ("copy", "memcpy", "memset", "catarray")),
     ("reduce", ("reduce",)),
     ("pad/pool/upsample", ("reflection", "pool", "upsample")),
@@ -327,28 +522,48 @@ KERNEL_GROUPS = (
 )
 
 
-def profile_phase(step, batch, steps: int = 3) -> None:
-    """Device time by kernel over a few steps (torch.profiler) and the
-    device's busy share of the window."""
+def profile_window(step, batch, steps: int):
+    """One profiled window of ``steps`` steps: (rows of (device us, count,
+    kernel) without the annotation ranges ("Optimizer.step#Adam.step"),
+    which span kernels counted on their own; wall ms; whether the device
+    recorded every launch, copy and fill the host asked for)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step(batch)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         for _ in range(steps):
             step(batch)
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()  # fewer device records outstanding at once
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    events = prof.key_averages()
+    rows = [(e.self_device_time_total, e.count, e.key) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+            and "#" not in e.key]
+    calls = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
+                and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
+                                      "cudaMemsetAsync")))
+    return sorted(rows, reverse=True), wall_ms, sum(r[1] for r in rows) >= calls
+
+
+def profile_phase(step, batch, label: str, steps: int = 3, tries: int = 3) -> None:
+    """Device time by kernel over a few steps (torch.profiler) and the
+    device's busy share of the window. The profiler can drop device events;
+    a window whose device records fall short of the host's calls is taken
+    again, up to ``tries`` times, and otherwise reported as a lower bound."""
+    step(batch)
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        rows, wall_ms, complete = profile_window(step, batch, steps)
+        if complete:
+            break
     if not rows:
         log("[profile] the profiler recorded no device time: not measured")
         return
-    rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"[profile] bf16 eval step: wall {wall_ms / steps:.4f} ms/step, device busy "
-        f"{busy_ms / steps:.4f} ms/step ({100 * busy_ms / wall_ms:.1f}% of the window)")
+    log(f"[profile] {label}: wall {wall_ms / steps:.4f} ms/step, device busy "
+        f"{busy_ms / steps:.4f} ms/step ({100 * busy_ms / wall_ms:.1f}% of the window); "
+        + ("every launch recorded" if complete else
+           f"events were dropped in {tries} windows, busy is a lower bound"))
     groups = {}
     for us, _, key in rows:
         name = next((g for g, pats in KERNEL_GROUPS if any(p in key.lower() for p in pats)), "other")
@@ -359,22 +574,45 @@ def profile_phase(step, batch, steps: int = 3) -> None:
         log(f"  {us / 1e3 / steps:9.4f} ms/step  x{n // steps:<4d} {key[:100]}")
 
 
+# Every kernel wrapper of the port, by the name the kernels line gives it.
+WRAPPERS = {"warp_sample": warp_sample, "warp_sample_bwd": warp_sample_bwd,
+            "ssim_nchw": ssim_nchw, "ssim_nchw_bwd": ssim_nchw_bwd}
+
+
+def zero_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    torch.cuda.synchronize()
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
+
+
+def make_nets(seed: int):
+    return (DispNet(18, generator=torch.Generator().manual_seed(seed)),
+            PoseNet(18, generator=torch.Generator().manual_seed(seed + 1)))
+
+
 def slice_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
-    disp_net = DispNet(18, generator=torch.Generator().manual_seed(seed))
-    pose_net = PoseNet(18, generator=torch.Generator().manual_seed(seed + 1))
+    """Slices 1-2's paths: depth inference and the photometric validation
+    step, forward only."""
+    disp_net, pose_net = make_nets(seed)
     batch = make_batch(rng)
     cfg = LossConfig()
     infer = make_inference_fn(disp_net, device=DEVICE)
     eval_step = make_eval_step(disp_net, pose_net, cfg, device=DEVICE)
 
-    # The main path, with every launch count at 0 just before it.
-    warp_sample.launches = 0
-    ssim_nchw.launches = 0
+    # Each path with every launch count at 0 just before it.
+    zero_launches()
     disp, depth = infer(batch["tgt"])
+    infer_launches = read_launches()
+    zero_launches()
     metrics = eval_step(batch)
-    torch.cuda.synchronize()
-    launches = {"warp_sample": warp_sample.launches, "ssim_nchw": ssim_nchw.launches}
-    log(f"[slice] launches on the main path: {launches}")
+    launches = read_launches()
+    log(f"[slice] launches: inference {infer_launches}, validation step {launches}")
+    if launches["warp_sample_bwd"] or launches["ssim_nchw_bwd"]:
+        raise AssertionError("the validation step launched a backward kernel")
     if disp.shape != (B, H, W, 1) or not torch.isfinite(depth).all():
         raise AssertionError(f"inference: shape {tuple(disp.shape)} or non-finite depth")
     if not (disp.min().item() >= 0.01 and disp.max().item() <= 10.01):
@@ -383,9 +621,9 @@ def slice_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
     log(f"[slice] bf16 eval step: {vals}")
     if not all(np.isfinite(v) for v in vals.values()) or vals["photo_loss"] <= 0:
         raise AssertionError(f"eval step: bad losses {vals}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} was not launched on the main path")
+    for name in ("warp_sample", "ssim_nchw"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on the validation path")
 
     # fp32 on the card (TF32 off) against the plain versions on the CPU.
     step32 = make_eval_step(disp_net, pose_net, cfg, device=DEVICE, precision="fp32")
@@ -399,15 +637,6 @@ def slice_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
         if not rel <= STEP_RTOL:
             raise AssertionError(f"fp32 eval {k}: card {gpu[k]} vs CPU {cpu[k]}, rel {rel:.2e}")
 
-    def host_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(STEP_ITERS):
-            fn()
-            torch.cuda.synchronize()
-        return (time.perf_counter() - t) / STEP_ITERS * 1e3
-
     on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
     times = {
         "eval_step_bf16_ms": host_ms(lambda: eval_step(batch)),
@@ -415,10 +644,132 @@ def slice_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
         "eval_step_fp32_ms": host_ms(lambda: step32(batch)),
         "inference_bf16_ms": host_ms(lambda: infer(batch["tgt"])),
     }
-    log(f"[slice] times (host clock, each step ends in synchronize): {times}")
-    log(f"[slice] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # The device's own time per step: no host in a CUDA-graph replay.
+    times["eval_step_bf16_device_ms"] = graph_ms(lambda: eval_step(on_card), 3)
+    log(f"[slice] times (host clock, median of {STEP_ITERS}, each step ends in synchronize; "
+        f"device_ms from a CUDA-graph replay): {times}")
+    log(f"[slice] peak device memory {peak_gib:.2f} GiB")
     if profile:
-        profile_phase(eval_step, on_card)
+        profile_phase(eval_step, on_card, "bf16 eval step")
+    return {"inference": infer_launches, "validation_step": launches}
+
+
+def host_ms(fn, iters: int = STEP_ITERS) -> float:
+    """Median host-clock ms of ``fn`` over ``iters`` runs, each ending in
+    synchronize, after one warm-up run."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times))
+
+
+def spread_heads(disp_net, pose_net, seed: int) -> None:
+    """A realistic scene for comparing gradients, as the CPU tests do: at
+    initialisation the disparity heads are nearly constant and the poses
+    ~1e-4, so the geometry term is a difference of nearly equal depths."""
+    with torch.no_grad():
+        for s in range(4):
+            disp_net.decoder.decoder[10 + s].conv.weight.mul_(20.0)
+        motion = np.random.RandomState(seed).randn(6) * [1.0, 1.0, 1.0, 0.5, 0.5, 0.5]
+        pose_net.decoder.net[3].bias.copy_(torch.from_numpy(motion.astype(np.float32)))
+
+
+def grads_by_name(*nets) -> dict:
+    return {f"{i}.{name}": p.grad.detach().double().cpu() for i, net in enumerate(nets)
+            for name, p in net.named_parameters() if p.grad is not None}
+
+
+def check_step_against_cpu(seed: int, rng: np.random.RandomState) -> dict:
+    """The fp32 train step on the card (TF32 off) against the plain versions
+    on the CPU, at B2 N2 128x416 with full-width ResNet-18: losses, and each
+    parameter's gradient by relative L2."""
+    b, n, h, w = CHECK_SHAPE
+    k = kitti_intrinsics(b)
+    k[:, :2] *= np.array([[w / W], [h / H]], np.float32)
+    batch = {"tgt": rng.rand(b, h, w, 3).astype(np.float32),
+             "refs": rng.rand(b, n, h, w, 3).astype(np.float32), "intrinsics": k}
+    disp_net, pose_net = make_nets(seed)
+    spread_heads(disp_net, pose_net, seed)
+    cpu_nets = (copy.deepcopy(disp_net), copy.deepcopy(pose_net))
+    card = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+                           device=DEVICE, precision="fp32")
+    cpu = make_train_step(*cpu_nets, make_optimizer(*cpu_nets), device="cpu", precision="fp32")
+    got = {k: v.item() for k, v in card(batch).items()}
+    want = {k: v.item() for k, v in cpu(batch).items()}
+    worst = {}
+    for key in METRICS:
+        rel = abs(got[key] - want[key]) / max(abs(want[key]), 1e-12)
+        worst[key] = rel
+        log(f"  fp32 train {key}: card {got[key]:.7f} cpu {want[key]:.7f} rel {rel:.2e} "
+            f"(tol {STEP_RTOL:.0e})")
+        if not rel <= STEP_RTOL:
+            raise AssertionError(f"fp32 train {key}: card {got[key]} vs CPU {want[key]}")
+    g_card, g_cpu = grads_by_name(disp_net, pose_net), grads_by_name(*cpu_nets)
+    if set(g_card) != set(g_cpu) or len(g_cpu) < 100:
+        raise AssertionError(f"gradients of {len(g_card)} and {len(g_cpu)} tensors")
+    rels = {}
+    for name, ref in g_cpu.items():
+        rels[name] = ((g_card[name] - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+    for part, tol in GRAD_RTOL.items():
+        mine = {k: v for k, v in rels.items() if (".encoder." in k) == (part == "encoders")}
+        top = max(mine, key=mine.get)
+        log(f"  fp32 train gradients, {part}: {len(mine)} tensors, median rel L2 "
+            f"{np.median(list(mine.values())):.2e}, worst {mine[top]:.2e} ({top}) (tol {tol:.1e})")
+        if not mine[top] <= tol:
+            raise AssertionError(f"fp32 train gradient {top}: rel L2 {mine[top]:.2e} > {tol}")
+        worst[f"grad_{part}"] = mine[top]
+    return worst
+
+
+def train_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
+    """This slice's main path: the bf16 train step at full width."""
+    disp_net, pose_net = make_nets(seed)
+    batch = make_batch(rng)
+    state = create_train_state(disp_net, pose_net, make_optimizer(disp_net, pose_net))
+    step = make_train_step(disp_net, pose_net, state.optimizer, LossConfig(), device=DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_launches()
+    first = step(batch)
+    launches = read_launches()
+    log(f"[train] launches in one bf16 train step: {launches}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched by the train step")
+    losses = [first["loss"].item()] + [step(batch)["loss"].item() for _ in range(TRAIN_STEPS)]
+    log(f"[train] bf16 losses over {len(losses)} steps: {[round(x, 6) for x in losses]}")
+    if not all(np.isfinite(losses)) or state.step != TRAIN_STEPS + 1:
+        raise AssertionError(f"train step: losses {losses}, {state.step} optimizer steps")
+
+    on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    times = {"train_step_bf16_ms": host_ms(lambda: step(batch)),
+             "train_step_bf16_batch_on_card_ms": host_ms(lambda: step(on_card))}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # The device's own time per step, from a CUDA-graph replay of the same
+    # step on a copy of the nets; capture needs Adam's capturable form,
+    # which keeps its step count on the card.
+    nets = (copy.deepcopy(disp_net), copy.deepcopy(pose_net))
+    adam = torch.optim.Adam([q for net in nets for q in net.parameters()], lr=1e-4,
+                            eps=1e-8, capturable=True)
+    graph_step = make_train_step(*nets, adam, LossConfig(), device=DEVICE)
+    times["train_step_bf16_device_ms"] = graph_ms(lambda: graph_step(on_card), 3)
+    times["device_busy_share"] = (times["train_step_bf16_device_ms"]
+                                  / times["train_step_bf16_batch_on_card_ms"])
+    del graph_step, adam, nets
+    log(f"[train] times (host clock, median of {STEP_ITERS}, each step ends in synchronize; "
+        f"device_ms from a CUDA-graph replay): {times}")
+    log(f"[train] peak device memory {peak_gib:.2f} GiB")
+    if profile:
+        profile_phase(step, on_card, "bf16 train step")
+    del step, state, disp_net, pose_net
+    log("[train] fp32 step on the card against the CPU's plain step")
+    check_step_against_cpu(seed + 2, rng)
     return launches
 
 
@@ -426,7 +777,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
-                   help="also print the eval step's device time by kernel (torch.profiler)")
+                   help="also print the eval and train steps' device time by kernel "
+                        "(torch.profiler)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -437,10 +789,15 @@ def main(argv=None) -> int:
     build_phase()
     rng = np.random.RandomState(args.seed)
     log("[kernels] against their plain versions at the main path's shapes")
-    kernels = [warp_phase(rng), ssim_phase(rng)]
-    launches = slice_phase(args.seed, rng, args.profile)
+    inputs = warp_inputs(rng)
+    kernels = [warp_phase(inputs), warp_bwd_phase(inputs, rng), ssim_phase(rng),
+               ssim_bwd_phase(rng)]
+    del inputs
+    by_path = slice_phase(args.seed, rng, args.profile)
+    by_path["train_step"] = train_phase(args.seed, rng, args.profile)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = by_path["train_step"][k["name"]]
+        k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

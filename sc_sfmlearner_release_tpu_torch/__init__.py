@@ -5,11 +5,19 @@ same layout (``ops/``, ``models/``, ``training/``) and the same layouts at
 its public functions (NHWC images, ``[B, H, W, 1]`` depths, ``[B, 3, 3]``
 intrinsics). It imports neither JAX nor the JAX package.
 
-The two TPU kernels of the forward path are CUDA C++ kernels in ``csrc/``,
-built for ``sm_90a`` at first use (``ops/_build.py``): the bilinear warp
-sampler (``ops/warp.py``) and the SSIM map (``ops/ssim.py``). Each wrapper
-launches its kernel on a CUDA tensor and runs its plain PyTorch version on
-a CPU tensor.
+The two TPU kernels of the main path are CUDA C++ kernels in ``csrc/``,
+each with a hand-written backward kernel, built for ``sm_90a`` at first use
+(``ops/_build.py``): the bilinear warp sampler (``ops/warp.py``,
+``csrc/warp_sample.cu``) and the SSIM map (``ops/ssim.py``,
+``csrc/ssim.cu`` and ``csrc/ssim_bwd.cu``). Each wrapper launches its
+kernel on a CUDA tensor, through an autograd Function whose backward is
+the backward kernel when a gradient is needed, and runs its plain PyTorch
+version on a CPU tensor.
+
+Entry points (``training/``): ``make_train_step`` (forward in train mode,
+3-term loss, backward, Adam from ``make_optimizer``), ``make_eval_step``
+(photometric validation), ``make_eval_depth_step`` (ground-truth depth
+metrics) and ``make_inference_fn``.
 
 Entry points take ``device=None``, which means ``"cuda"``, and raise when no
 card is present unless the caller asks for ``device="cpu"``.

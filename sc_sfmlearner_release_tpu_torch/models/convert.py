@@ -180,3 +180,13 @@ def to_jax_variables(
 ) -> Tuple[Tree, Tree]:
     """Inverse of :func:`from_jax_variables`: ``(disp_vars, pose_vars)``."""
     return disp_to_jax(disp_state_dict, num_layers), pose_to_jax(pose_state_dict, 18)
+
+
+def gradient_state_dict(module: torch.nn.Module) -> StateDict:
+    """``module``'s state dict with every parameter replaced by its gradient
+    (zeros where it has none), so that :func:`to_jax_variables` maps the
+    gradients onto the flax ``params`` tree as it maps the weights."""
+    sd = dict(module.state_dict())
+    for name, p in module.named_parameters():
+        sd[name] = p.grad if p.grad is not None else torch.zeros_like(p)
+    return sd

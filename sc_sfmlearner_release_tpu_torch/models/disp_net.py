@@ -25,6 +25,16 @@ DEC_CHANNELS = (16, 32, 64, 128, 256)
 SCALES = (0, 1, 2, 3)
 
 
+def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
+    """Reflect-pad the last two axes by 1. A size-1 axis (the deepest
+    feature map of a 32-row image) replicates its only element, as numpy's
+    and the JAX package's reflect do; ``F.pad`` refuses it."""
+    if x.shape[-1] > 1 and x.shape[-2] > 1:
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if x.shape[-1] > 1 else "replicate")
+    return F.pad(x, (0, 0, 1, 1), mode="reflect" if x.shape[-2] > 1 else "replicate")
+
+
 class Conv3x3(nn.Module):
     """Reflection-pad 1, then a 3x3 valid conv."""
 
@@ -33,7 +43,7 @@ class Conv3x3(nn.Module):
         self.conv = nn.Conv2d(cin, cout, 3)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (1, 1, 1, 1), mode="reflect"))
+        return self.conv(reflect_pad1(x))
 
 
 class ConvBlock(nn.Module):

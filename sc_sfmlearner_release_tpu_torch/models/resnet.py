@@ -61,10 +61,32 @@ def torch_default_conv_init_(conv: nn.Conv2d, generator: torch.Generator) -> Non
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) computed in fp32."""
+    """``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1) computed in fp32, with
+    flax's running statistics.
+
+    In train mode it normalises with the batch's biased variance, as both
+    frameworks do, and moves ``running_var`` towards the *biased* variance
+    as flax's ``BatchNorm`` does (torch's own uses the unbiased one, off by
+    n/(n-1): 2.9% at n = 36 values per channel). The batch statistics come
+    out of the one ``F.batch_norm`` call, into scratch buffers it overwrites
+    (momentum 1); the running buffers then move by ``momentum``.
+    """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.float())
+        x = x.float()
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        batch_mean = torch.zeros_like(self.running_mean)
+        batch_var = torch.zeros_like(self.running_var)
+        out = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias, True, 1.0,
+                           self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(batch_mean, self.momentum)
+            self.running_var.lerp_(batch_var * ((n - 1) / n), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class BasicBlock(nn.Module):

@@ -13,5 +13,6 @@ from .geometry import (
 )
 from .grid_sample import grid_sample
 from .losses import mean_on_mask, photo_and_geometry_loss, smooth_loss
-from .ssim import ssim, ssim_nchw, ssim_nchw_plain
-from .warp import warp_sample, warp_sample_plain
+from .metrics import compute_depth_errors
+from .ssim import ssim, ssim_nchw, ssim_nchw_bwd, ssim_nchw_plain
+from .warp import warp_sample, warp_sample_bwd, warp_sample_plain

@@ -10,6 +10,9 @@ with the compiler's output: there is no fallback.
 into one rounding, so the kernels round as their plain PyTorch versions do.
 ``-cudart shared`` links the kernels against the shared CUDA runtime, so
 the process holds one runtime: the one PyTorch has already loaded.
+
+The wrappers in ``ops/`` share the checks every kernel needs of its
+tensors (``check_tensors``) and the stream they launch on (``stream``).
 """
 
 from __future__ import annotations
@@ -22,7 +25,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -113,3 +118,27 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.kernel_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_tensors(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """What every kernel takes: one CUDA device, float32, contiguous, fewer
+    than 2^31 elements (the kernels index with 32-bit sizes)."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{name}: tensors on {[str(t.device) for t in tensors]}; all must be "
+            "on one CUDA device (or all on the CPU)"
+        )
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name}: needs float32, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    if any(t.numel() >= 2**31 for t in tensors):
+        raise ValueError(f"{name}: tensors must hold fewer than 2^31 elements")
+
+
+def stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device: kernels
+    launch there, in order with PyTorch's own work."""
+    with torch.cuda.device(t.device):
+        return torch.cuda.current_stream().cuda_stream

@@ -49,6 +49,16 @@ def inv3x3(m: torch.Tensor) -> torch.Tensor:
     return adj / det[..., None, None]
 
 
+def _transform(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m`` ``[B, 3, 3]`` applied to the points ``v`` ``[B, H, W, 3]`` as
+    three broadcast multiply-adds. Autograd then reduces d(m) over the
+    pixels with a sum; a batched matmul's backward runs it as one cuBLAS
+    GEMV of depth H*W, which took 6.3 ms of the train step at 832x256 on an
+    H100 (PERF.md)."""
+    m = m[:, None, None]
+    return (m[..., 0] * v[..., 0:1] + m[..., 1] * v[..., 1:2]) + m[..., 2] * v[..., 2:3]
+
+
 def pixel2cam(depth: torch.Tensor, intrinsics_inv: torch.Tensor) -> torch.Tensor:
     """Backproject ``depth`` ``[B, H, W]`` into camera points ``[B, H, W, 3]``."""
     _, h, w = depth.shape
@@ -69,7 +79,7 @@ def cam2pixel(
     """
     _, h, w, _ = cam_coords.shape
     rot, tr = proj[:, :, :3], proj[:, :, 3]
-    p = torch.einsum("bij,bhwj->bhwi", rot, cam_coords) + tr[:, None, None, :]
+    p = _transform(rot, cam_coords) + tr[:, None, None, :]
     x, y = p[..., 0], p[..., 1]
     z = torch.clamp(p[..., 2], min=1e-3)
 
@@ -187,13 +197,15 @@ def inverse_warp2(
     float, projected source depth ``[B, H, W, 1]``, computed depth
     ``[B, H, W, 1]``).
 
-    The source image is sampled without gradient (it is camera data); the
-    source depth and the coordinates carry one. Depth and RGB are packed
-    into one ``[B, H, W, 4]`` source so one kernel launch samples both.
+    The source image is sampled without gradient (it is camera data, as the
+    JAX package's ``stop_gradient``); the coordinates carry one to depth and
+    pose, and the source depth to DispNet. Depth and RGB are sampled as one
+    ``[B, H, W, 4]`` source, so one kernel launch samples both and one
+    backward launch returns d(coords) and d(source depth).
     """
     coords, computed_depth = project_pixel_coords(depth, pose, intrinsics, padding_mode)
-    packed = torch.cat([ref_depth.float(), img.detach().float()], dim=-1)
-    sampled = warp_sample(packed, coords.contiguous(), padding_mode)
+    sampled = warp_sample(ref_depth.float().contiguous(), coords.contiguous(), padding_mode,
+                          frozen=img.detach().float().contiguous())
     projected_depth = sampled[..., 0:1].to(ref_depth.dtype)
     projected_img = sampled[..., 1:].to(img.dtype)
     valid = (coords.abs().amax(dim=-1) <= 1.0).to(img.dtype)

@@ -48,7 +48,7 @@ def _grouped_mean_on_mask(diff: torch.Tensor, valid_mask: torch.Tensor) -> torch
     return torch.where(mask_sum > MIN_MASK_SUM, mean, torch.zeros_like(mean))
 
 
-def _upsample_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def resize_nearest(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """Nearest resize of ``[B, h0, w0, C]`` to ``[B, h, w, C]`` with
     ``jax.image.resize``'s source index ``floor((i + 0.5) * in / out)``."""
     h0, w0 = x.shape[1], x.shape[2]
@@ -117,10 +117,10 @@ def photo_and_geometry_loss(
     photo_total = torch.zeros((), dtype=tgt_img.dtype, device=tgt_img.device)
     geom_total = torch.zeros((), dtype=tgt_img.dtype, device=tgt_img.device)
     for s in range(scales):
-        tgt_d = _upsample_nearest(tgt_depth[s], h, w)
+        tgt_d = resize_nearest(tgt_depth[s], h, w)
         ref_d = ref_depths[s]
         ref_d = ref_d.reshape((b * n,) + ref_d.shape[2:])
-        ref_d = _upsample_nearest(ref_d, h, w).reshape(b, n, h, w, 1)
+        ref_d = resize_nearest(ref_d, h, w).reshape(b, n, h, w, 1)
         tgt_d_f, src_d_f = flatten_pairs(tgt_d, ref_d)
 
         warped, valid, projected_depth, computed_depth = inverse_warp2(

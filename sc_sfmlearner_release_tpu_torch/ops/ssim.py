@@ -5,15 +5,17 @@ kernel ``ops/pallas_ssim.py``: reflection-pad by 1, 3x3 means for the local
 statistics, ``clip((1 - SSIM) / 2, 0, 1)`` (0 = identical).
 
 ``ssim_nchw`` launches the hand-written CUDA kernel ``csrc/ssim.cu`` on
-CUDA tensors and runs ``ssim_nchw_plain`` on CPU tensors. The kernel has no
-backward yet: on a CUDA tensor that requires grad with grad mode on, the
-wrapper raises rather than fall back to the plain path.
+CUDA tensors and runs ``ssim_nchw_plain`` on CPU tensors. On CUDA tensors
+that need a gradient it goes through an autograd Function whose backward
+launches ``csrc/ssim_bwd.cu`` (``ssim_nchw_bwd``): d/dy, and d/dx only when
+x needs one. There is no fallback to the plain path on a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,7 +38,8 @@ def _mean3(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 
 def ssim_nchw_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`ssim_nchw`: ``[F, C, H, W]`` -> same shape."""
+    """Plain version of :func:`ssim_nchw`: ``[F, C, H, W]`` -> same shape.
+    Its autograd is the plain version of :func:`ssim_nchw_bwd`."""
     h, w = x.shape[-2:]
     xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
     yp = F.pad(y, (1, 1, 1, 1), mode="reflect")
@@ -57,7 +60,7 @@ def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _kernel():
+def _fwd_kernel():
     lib = _build.load("ssim")
     fn = lib.ssim_fwd
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -65,42 +68,82 @@ def _kernel():
     return lib, fn
 
 
+@functools.cache
+def _bwd_kernel():
+    lib = _build.load("ssim_bwd")
+    fn = lib.ssim_bwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check(name: str, tensors) -> None:
+    _build.check_tensors(name, tensors)
+    x = tensors[0]
+    if x.dim() != 4 or any(t.shape != x.shape for t in tensors):
+        raise ValueError(f"{name}: bad shapes {[tuple(t.shape) for t in tensors]}")
+    f, c, h, w = x.shape
+    if h < 2 or w < 2:
+        raise ValueError(f"{name}: reflect padding needs H, W >= 2, got {h}x{w}")
+    if f * c > 65535:
+        raise ValueError(f"{name}: too large, shape {tuple(x.shape)}")
+
+
+def _launch_fwd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    f, c, h, w = x.shape
+    out = torch.empty_like(x)
+    lib, fwd = _fwd_kernel()
+    code = fwd(x.data_ptr(), y.data_ptr(), out.data_ptr(), f * c, h, w, _build.stream(x))
+    _build.check(lib, code, "ssim_nchw")
+    ssim_nchw.launches += 1
+    return out
+
+
+def ssim_nchw_bwd(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, need_x: bool = False
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Launch the backward kernel: ``(d/dx or None, d/dy)`` of
+    ``sum(g * ssim_nchw(x, y))``, all ``[F, C, H, W]`` on one CUDA device.
+    CUDA only; its plain version is the autograd of :func:`ssim_nchw_plain`."""
+    _check("ssim_nchw_bwd", (x, y, g))
+    f, c, h, w = x.shape
+    dy = torch.empty_like(y)
+    dx = torch.empty_like(x) if need_x else None
+    lib, bwd = _bwd_kernel()
+    code = bwd(x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr() if need_x else None,
+               dy.data_ptr(), f * c, h, w, _build.stream(x))
+    _build.check(lib, code, "ssim_nchw_bwd")
+    ssim_nchw_bwd.launches += 1
+    return dx, dy
+
+
+ssim_nchw_bwd.launches = 0
+
+
+class _Ssim(torch.autograd.Function):
+    """Forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return _launch_fwd(x, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        need_x, need_y = ctx.needs_input_grad
+        dx, dy = ssim_nchw_bwd(x, y, g.contiguous(), need_x)
+        return dx, dy if need_y else None
+
+
 def ssim_nchw(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """SSIM dissimilarity map of ``x`` and ``y`` ``[F, C, H, W]`` float32."""
     if x.device.type == "cpu" and y.device.type == "cpu":
         return ssim_nchw_plain(x, y)
-    if x.device.type != "cuda" or y.device != x.device:
-        raise ValueError(
-            f"ssim_nchw: x on {x.device}, y on {y.device}; both must be on "
-            "one CUDA device (or both on the CPU)"
-        )
+    _check("ssim_nchw", (x, y))
     if torch.is_grad_enabled() and (x.requires_grad or y.requires_grad):
-        raise RuntimeError(
-            "ssim_nchw: the CUDA kernel has no backward yet; call it under "
-            "torch.no_grad()"
-        )
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"ssim_nchw: needs float32, got {x.dtype}, {y.dtype}")
-    if x.dim() != 4 or x.shape != y.shape:
-        raise ValueError(
-            f"ssim_nchw: bad shapes x {tuple(x.shape)}, y {tuple(y.shape)}"
-        )
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("ssim_nchw: x and y must be contiguous")
-    f, c, h, w = x.shape
-    if h < 2 or w < 2:
-        raise ValueError(f"ssim_nchw: reflect padding needs H, W >= 2, got {h}x{w}")
-    if f * c > 65535 or x.numel() >= 2**31:
-        raise ValueError(f"ssim_nchw: too large, shape {tuple(x.shape)}")
-
-    out = torch.empty_like(x)
-    lib, fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), f * c, h, w, stream)
-    _build.check(lib, code, "ssim_nchw")
-    ssim_nchw.launches += 1
-    return out
+        return _Ssim.apply(x, y)
+    return _launch_fwd(x, y)
 
 
 ssim_nchw.launches = 0

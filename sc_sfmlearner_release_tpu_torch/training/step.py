@@ -1,9 +1,11 @@
-"""Validation and inference steps (forward only).
+"""Training, validation and inference steps.
 
 The counterpart of the JAX package's ``training/step.py``: depth for all
 snippet frames in one batched DispNet call, all 2N directed poses in one
 batched PoseNet call (frame-major folding, so BatchNorm sees the same
-batches as in JAX), then the 3-term loss.
+batches as in JAX), then the 3-term loss; the train step adds the backward
+pass (through the warp and SSIM backward kernels on the card) and the Adam
+update.
 
 Batch layout (numpy arrays or tensors):
   batch = {
@@ -29,7 +31,8 @@ import numpy as np
 import torch
 
 from .. import disable_tf32, resolve_device
-from ..ops.losses import photo_and_geometry_loss, smooth_loss
+from ..ops.losses import photo_and_geometry_loss, resize_nearest, smooth_loss
+from ..ops.metrics import compute_depth_errors
 
 PRECISIONS = ("bf16", "fp32")
 Batch = Dict[str, torch.Tensor]
@@ -105,8 +108,13 @@ def compute_pose_with_inv(
 def total_loss(
     disp_net, pose_net, batch: Batch, cfg: LossConfig,
     sample_mask: Optional[torch.Tensor] = None, precision: str = "bf16",
+    train: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The weighted 3-term loss of a batch: (total, metrics)."""
+    """The weighted 3-term loss of a batch: (total, metrics). Puts both
+    networks in train mode (BatchNorm on batch statistics, running
+    statistics updated) if ``train``, else in eval mode."""
+    disp_net.train(train)
+    pose_net.train(train)
     tgt, refs, intrinsics = batch["tgt"], batch["refs"], batch["intrinsics"]
     with conv_autocast(tgt.device, precision):
         tgt_depth, ref_depths = compute_depth(disp_net, tgt, refs)
@@ -129,6 +137,45 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
+def _snippet(batch, device: torch.device) -> Batch:
+    return {k: _to_device(batch[k], device).float() for k in ("tgt", "refs", "intrinsics")}
+
+
+def make_train_step(
+    disp_net, pose_net, optimizer: torch.optim.Optimizer, cfg: LossConfig = LossConfig(),
+    device=None, precision: str = "bf16",
+) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """One optimizer step per call, in the JAX step's order: the forward in
+    train mode (BatchNorm on batch statistics), the 3-term loss, the
+    backward (on the card through the warp and SSIM backward kernels), the
+    update of ``optimizer`` (:func:`~.state.make_optimizer`'s Adam over both
+    networks). BatchNorm moves its running statistics during the forward;
+    nothing in the step reads them, so the result is the JAX step's, which
+    returns them after the update.
+
+    Moves both networks to ``device``. Returns ``train_step(batch) ->
+    metrics`` (detached 0-d tensors: ``loss``, ``photo_loss``,
+    ``smooth_loss``, ``geometry_loss``). Not ported yet: the JAX step's
+    ``remat``, ``augment_fn`` and ``fused_steps``.
+    """
+    device = resolve_device(device)
+    _check_precision(precision)
+    disable_tf32()
+    disp_net.to(device)
+    pose_net.to(device)
+
+    def train_step(batch) -> Dict[str, torch.Tensor]:
+        snippet = _snippet(batch, device)
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = total_loss(disp_net, pose_net, snippet, cfg, precision=precision,
+                                   train=True)
+        loss.backward()
+        optimizer.step()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
 def make_eval_step(
     disp_net, pose_net, cfg: LossConfig = LossConfig(), device=None,
     precision: str = "bf16",
@@ -136,17 +183,17 @@ def make_eval_step(
     """Photometric validation without ground truth: the same losses with
     both networks in eval mode, auto-mask off and scale 0 only. If the batch
     carries ``"n_valid"``, the padded samples past it are masked out of
-    every mean. Moves both networks to ``device`` and puts them in eval
-    mode. Returns ``eval_step(batch) -> metrics`` (0-d tensors)."""
+    every mean. Moves both networks to ``device``; each call puts them in
+    eval mode. Returns ``eval_step(batch) -> metrics`` (0-d tensors)."""
     device = resolve_device(device)
     _check_precision(precision)
     disable_tf32()
-    disp_net.to(device).eval()
-    pose_net.to(device).eval()
+    disp_net.to(device)
+    pose_net.to(device)
     eval_cfg = dataclasses.replace(cfg, with_auto_mask=False, num_scales=1)
 
     def eval_step(batch) -> Dict[str, torch.Tensor]:
-        b = {k: _to_device(batch[k], device).float() for k in ("tgt", "refs", "intrinsics")}
+        b = _snippet(batch, device)
         sample_mask = None
         if "n_valid" in batch:
             sample_mask = (
@@ -163,16 +210,41 @@ def make_inference_fn(
     disp_net, device=None, precision: str = "bf16"
 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """Single-image depth inference: ``infer(img [B, H, W, 3])`` returns
-    (disp, depth), both ``[B, H, W, 1]`` at scale 0."""
+    (disp, depth), both ``[B, H, W, 1]`` at scale 0, with DispNet in eval
+    mode."""
     device = resolve_device(device)
     _check_precision(precision)
     disable_tf32()
-    disp_net.to(device).eval()
+    disp_net.to(device)
 
     def infer(img) -> Tuple[torch.Tensor, torch.Tensor]:
         x = _to_device(img, device).float()
+        disp_net.eval()
         with torch.no_grad(), conv_autocast(device, precision):
             disp = disp_net(x)[0]
         return disp, 1.0 / disp
 
     return infer
+
+
+def make_eval_depth_step(
+    disp_net, dataset: str = "kitti", device=None, precision: str = "bf16"
+) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """Validation against ground-truth depth: scale-0 disparity -> depth,
+    resized (nearest, as the reference's ``F.interpolate`` default) to the
+    ground truth's size if it differs, then the masked, median-scaled error
+    metrics (:func:`~..ops.metrics.compute_depth_errors`). ``batch`` holds
+    ``"img"`` ``[B, H, W, 3]``, ``"depth"`` ``[B, Hg, Wg]`` and optionally
+    ``"n_valid"``: only the first ``n_valid`` images enter the means.
+    Returns ``eval_depth_step(batch) -> metrics`` (0-d tensors)."""
+    infer = make_inference_fn(disp_net, device, precision)
+    device = resolve_device(device)
+
+    def eval_depth_step(batch) -> Dict[str, torch.Tensor]:
+        _, depth = infer(batch["img"])
+        gt = _to_device(batch["depth"], device).float()
+        if gt.shape[1:] != depth.shape[1:3]:
+            depth = resize_nearest(depth, gt.shape[1], gt.shape[2])
+        return compute_depth_errors(gt, depth[..., 0], dataset, n_valid=batch.get("n_valid"))
+
+    return eval_depth_step

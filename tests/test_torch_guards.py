@@ -1,8 +1,11 @@
 """Guards of the PyTorch port: it imports no JAX, CPU tensors take the plain
-versions without launching a kernel, a missing card or compiler raises, and
-``chip_smoke.py`` fails without a card."""
+versions without launching a kernel, device tensors that need a gradient go
+through the autograd Functions (forward kernel, then backward kernel), a
+missing card or compiler raises, and ``chip_smoke.py`` fails without a
+card."""
 
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -19,8 +22,17 @@ from sc_sfmlearner_release_tpu_torch.ops import _build
 from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw
 from sc_sfmlearner_release_tpu_torch.ops.warp import warp_sample
 from sc_sfmlearner_release_tpu_torch.tools import ssim_variants
-from sc_sfmlearner_release_tpu_torch.training import make_eval_step, make_inference_fn
+from sc_sfmlearner_release_tpu_torch.training import (
+    make_eval_depth_step,
+    make_eval_step,
+    make_inference_fn,
+    make_optimizer,
+    make_train_step,
+)
 
+# The modules themselves: ``ops`` exports a function named ``ssim``.
+ssim_mod = importlib.import_module("sc_sfmlearner_release_tpu_torch.ops.ssim")
+warp_mod = importlib.import_module("sc_sfmlearner_release_tpu_torch.ops.warp")
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT / "sc_sfmlearner_release_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sc_sfmlearner_release_tpu"}
@@ -71,6 +83,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         make_eval_step(disp, pose)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_inference_fn(disp)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(disp, pose, make_optimizer(disp, pose))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_eval_depth_step(disp)
     assert port.resolve_device("cpu").type == "cpu"
 
 
@@ -109,9 +125,78 @@ def test_library_path_follows_the_source(monkeypatch, tmp_path):
     assert first.parent == _build.BUILD_DIR
 
 
+@pytest.fixture
+def stubbed_kernels(monkeypatch):
+    """The wrappers' device route on meta tensors, with every launcher
+    stubbed to record its call and the plain versions forbidden."""
+    calls = []
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("the plain version ran on a device tensor")
+
+    def warp_fwd(src, coords, mode):
+        calls.append(("warp_sample", src.shape[-1]))
+        return torch.zeros(coords.shape[:3] + src.shape[-1:], device=src.device)
+
+    def warp_bwd(src, coords, dout, mode, grad_channels, need_coords):
+        calls.append(("warp_sample_bwd", grad_channels, need_coords))
+        dsrc = torch.zeros(src.shape[:3] + (grad_channels,), device=src.device)
+        return dsrc if grad_channels else None, torch.zeros_like(coords) if need_coords else None
+
+    def ssim_fwd(x, y):
+        calls.append(("ssim_nchw",))
+        return torch.zeros_like(x)
+
+    def ssim_bwd(x, y, g, need_x=False):
+        calls.append(("ssim_nchw_bwd", need_x))
+        return torch.zeros_like(x) if need_x else None, torch.zeros_like(y)
+
+    monkeypatch.setattr(_build, "check_tensors", lambda *args: None)
+    monkeypatch.setattr(warp_mod, "grid_sample", forbidden)
+    monkeypatch.setattr(ssim_mod, "ssim_nchw_plain", forbidden)
+    monkeypatch.setattr(warp_mod, "_launch_fwd", warp_fwd)
+    monkeypatch.setattr(warp_mod, "warp_sample_bwd", warp_bwd)
+    monkeypatch.setattr(ssim_mod, "_launch_fwd", ssim_fwd)
+    monkeypatch.setattr(ssim_mod, "ssim_nchw_bwd", ssim_bwd)
+    return calls
+
+
+@pytest.mark.parametrize("coords_grad", [True, False])
+def test_warp_grad_goes_through_the_backward_kernel(stubbed_kernels, coords_grad):
+    meta = dict(device="meta")
+    depth = torch.zeros(2, 4, 5, 1, **meta, requires_grad=True)
+    rgb = torch.zeros(2, 4, 5, 3, **meta, requires_grad=True)
+    coords = torch.zeros(2, 3, 6, 2, **meta, requires_grad=coords_grad)
+    out = warp_sample(depth, coords, "zeros", frozen=rgb)
+    assert out.shape == (2, 3, 6, 4)
+    out.sum().backward()
+    # One forward launch on the packed [depth, RGB] source, one backward
+    # launch for d(depth) alone and d(coords) only if asked; none for RGB.
+    assert stubbed_kernels == [("warp_sample", 4), ("warp_sample_bwd", 1, coords_grad)]
+    assert depth.grad.shape == depth.shape and rgb.grad is None
+    assert (coords.grad is not None) == coords_grad
+    with torch.no_grad():
+        warp_sample(depth, coords, "zeros", frozen=rgb)
+    assert stubbed_kernels[-1] == ("warp_sample", 4)
+
+
+def test_ssim_grad_goes_through_the_backward_kernel(stubbed_kernels):
+    meta = dict(device="meta")
+    x = torch.zeros(2, 3, 4, 5, **meta)
+    y = torch.zeros(2, 3, 4, 5, **meta, requires_grad=True)
+    ssim_nchw(x, y).sum().backward()
+    assert stubbed_kernels == [("ssim_nchw",), ("ssim_nchw_bwd", False)]
+    assert y.grad.shape == y.shape and x.grad is None
+    x.requires_grad_(True)
+    ssim_nchw(x, y).sum().backward()
+    assert stubbed_kernels[-1] == ("ssim_nchw_bwd", True) and x.grad.shape == x.shape
+
+
 @pytest.mark.parametrize("name,replaces", [
     ("warp_sample", "tools/bench_pallas_warp.py::_pallas_fwd"),
+    ("warp_sample", "ops/warp_band.py::_band_sample_bwd"),
     ("ssim", "ops/pallas_ssim.py::"),
+    ("ssim_bwd", "ops/pallas_ssim.py:150-158"),
 ])
 def test_kernel_sources_name_what_they_replace(name, replaces):
     text = (PORT_DIR / "csrc" / f"{name}.cu").read_text()

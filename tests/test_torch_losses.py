@@ -105,5 +105,5 @@ def test_mean_on_mask_guard_matches_jax(valid_px):
 def test_upsample_nearest_matches_jax(size):
     x = np.random.RandomState(5).rand(2, 8, 12, 1).astype(np.float32)
     ref = jl._upsample_nearest(jnp.asarray(x), *size)
-    got = tl._upsample_nearest(torch.from_numpy(x), *size)
+    got = tl.resize_nearest(torch.from_numpy(x), *size)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))

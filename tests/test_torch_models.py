@@ -18,6 +18,7 @@ import torch
 from sc_sfmlearner_release_tpu.models import DispNet as JDispNet
 from sc_sfmlearner_release_tpu.models import PoseNet as JPoseNet
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
+from sc_sfmlearner_release_tpu_torch.models.disp_net import reflect_pad1
 from sc_sfmlearner_release_tpu_torch.models.convert import (
     disp_from_jax,
     from_jax_variables,
@@ -142,3 +143,12 @@ def test_generator_init_is_deterministic():
     key = "encoder.encoder.conv1.weight"
     assert torch.equal(a[key], b[key]) and not torch.equal(a[key], c[key])
     assert torch.equal(a["decoder.decoder.0.conv.conv.bias"], b["decoder.decoder.0.conv.conv.bias"])
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 4, 5), (2, 3, 1, 2), (1, 2, 3, 1), (1, 1, 1, 1)])
+def test_reflect_pad1_matches_numpy(shape):
+    """The decoder's pad: reflect, and on a size-1 axis (the deepest map of
+    a 32-row image) replicate, as numpy's and the JAX package's reflect do."""
+    x = np.random.RandomState(0).rand(*shape).astype(np.float32)
+    want = np.pad(x, ((0, 0), (0, 0), (1, 1), (1, 1)), mode="reflect")
+    np.testing.assert_array_equal(reflect_pad1(torch.from_numpy(x)).numpy(), want)
