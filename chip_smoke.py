@@ -18,7 +18,8 @@ when it fails:
    shapes that reach every edge of its tiling), and the two backward
    kernels against autograd through the plain versions (the warp's
    d(coords) and d(source depth) in both padding modes on projected and
-   random coordinates; SSIM's d/dy and d/dx at every SSIM shape). Kernel,
+   random coordinates; SSIM's d/dy and d/dx at every SSIM shape, also
+   against its own plain version, with each launch's geometry). Kernel,
    plain and library or stream times. ``ms`` is CUDA events around
    back-to-back wrapper calls; ``device_ms`` is the kernel's own device time
    per call (torch.profiler, or a CUDA graph of the calls replayed under
@@ -58,7 +59,9 @@ from sc_sfmlearner_release_tpu_torch import disable_tf32
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
 from sc_sfmlearner_release_tpu_torch.ops import _build
 from sc_sfmlearner_release_tpu_torch.ops.geometry import project_pixel_coords
-from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw, ssim_nchw_bwd, ssim_nchw_plain
+from sc_sfmlearner_release_tpu_torch.ops.ssim import (
+    ssim_nchw, ssim_nchw_bwd, ssim_nchw_bwd_plain, ssim_nchw_plain,
+)
 from sc_sfmlearner_release_tpu_torch.ops.warp import (
     warp_sample, warp_sample_bwd, warp_sample_plain,
 )
@@ -367,13 +370,17 @@ def warp_bwd_phase(inputs: dict, rng: np.random.RandomState) -> dict:
             "bound_us": bound_ms * 1e3, "bound_by": bound_by, "library_ms": library_ms}
 
 
-# Shapes that reach every edge of the SSIM kernel's tiling, beside the main
+# Shapes that reach every edge of the SSIM kernels' tilings, beside the main
 # path's: W % 4 != 0 (one column per lane), W narrower than one strip, a
 # ragged last strip, H = W = 2; H is not a multiple of the rows per warp at
-# the main shape and at [1,3,256,834]. ssim_phase adds an input that is not
-# 16-byte aligned.
+# the main shape and at [1,3,256,834]. The backward's strips write 120
+# columns (28 at one column per lane) after a first strip of 124 (30): widths
+# 244 and 248, 57 and 59 lie on either side of a strip boundary, and H = 3 is
+# below its rows per warp plus the 4 halo rows. ssim_cases adds an input that
+# is not 16-byte aligned.
 SSIM_EDGE_SHAPES = ((2, 3, 37, 53), (1, 3, 256, 834), (2, 3, 40, 64), (3, 3, 100, 200),
-                    (1, 3, 2, 2), (1, 1, 2, 4))
+                    (1, 3, 2, 2), (1, 1, 2, 4), (1, 3, 9, 244), (1, 3, 3, 248), (1, 2, 6, 57),
+                    (1, 2, 6, 59))
 
 
 def ssim_plan(x: torch.Tensor, y: torch.Tensor) -> str:
@@ -386,6 +393,21 @@ def ssim_plan(x: torch.Tensor, y: torch.Tensor) -> str:
     # The output is a fresh allocation, aligned as the wrapper's is (0 stands for it).
     code = lib.ssim_plan(x.data_ptr(), y.data_ptr(), 0, f * c, h, w, plan)
     _build.check(lib, code, "ssim_plan")
+    return (f"{plan[0]} column(s) per lane, {plan[1]} warps per block, {plan[2]} strip(s) "
+            f"per row, {plan[3]} rows per warp, {plan[4]} blocks")
+
+
+def ssim_bwd_plan(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> str:
+    """The SSIM backward launch's geometry for these inputs, as ``ssim_bwd``
+    makes it."""
+    lib = _build.load("ssim_bwd")
+    lib.ssim_bwd_plan.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    lib.ssim_bwd_plan.restype = ctypes.c_int
+    plan = (ctypes.c_int * 5)()
+    f, c, h, w = x.shape
+    # The gradients are fresh allocations, aligned as the wrapper's are (0 stands for them).
+    code = lib.ssim_bwd_plan(x.data_ptr(), y.data_ptr(), g.data_ptr(), 0, 0, f * c, h, w, plan)
+    _build.check(lib, code, "ssim_bwd_plan")
     return (f"{plan[0]} column(s) per lane, {plan[1]} warps per block, {plan[2]} strip(s) "
             f"per row, {plan[3]} rows per warp, {plan[4]} blocks")
 
@@ -444,21 +466,26 @@ def ssim_phase(rng: np.random.RandomState) -> dict:
 
 
 def ssim_bwd_check(rng: np.random.RandomState) -> float:
-    """The backward kernel against autograd through the plain version, for
-    d/dy alone (the main path's call) and d/dx with d/dy, at every SSIM case;
-    and once through the autograd Function."""
+    """The backward kernel against autograd through the plain forward and
+    against its own plain version ``ssim_nchw_bwd_plain``, for d/dy alone
+    (the main path's call) and d/dx with d/dy, at every SSIM case; and once
+    through the autograd Function."""
     err = 0.0
     for tag, x, ys in ssim_cases(rng):
         g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(DEVICE)
+        log(f"  ssim_nchw_bwd {tag}: {ssim_bwd_plan(x, ys[0][1], g)}")
         for label, y in ys:
             (want_x, want_y), _ = plain_grads(ssim_nchw_plain, (x, y), g)
+            plain_x, plain_y = ssim_nchw_bwd_plain(x, y, g, need_x=True)
             _, dy_only = ssim_nchw_bwd(x, y, g)
             dx, dy = ssim_nchw_bwd(x, y, g, need_x=True)
             torch.cuda.synchronize()
             name = f"ssim_nchw_bwd {tag} {label}"
-            err = max(err, check_rel(f"{name} d/dy alone", dy_only, want_y, GRAD_TOL))
-            err = max(err, check_rel(f"{name} d/dy", dy, want_y, GRAD_TOL))
-            err = max(err, check_rel(f"{name} d/dx", dx, want_x, GRAD_TOL))
+            for ref, want in (("autograd", (want_x, want_y)), ("plain", (plain_x, plain_y))):
+                err = max(err, check_rel(f"{name} d/dy alone vs {ref}", dy_only, want[1],
+                                         GRAD_TOL))
+                err = max(err, check_rel(f"{name} d/dy vs {ref}", dy, want[1], GRAD_TOL))
+                err = max(err, check_rel(f"{name} d/dx vs {ref}", dx, want[0], GRAD_TOL))
     y = ys[1][1].clone().requires_grad_(True)
     got_y, = torch.autograd.grad(ssim_nchw(x, y), (y,), g)
     (_, want_y), _ = plain_grads(ssim_nchw_plain, (x, y), g)
@@ -476,23 +503,28 @@ def ssim_bwd_phase(rng: np.random.RandomState) -> dict:
     ms = cuda_ms(call, KERNEL_ITERS)
     dev_ms, dev_by = device_ms(call, "ssim_bwd_kernel")
     dx_ms, _ = device_ms(lambda: ssim_nchw_bwd(x, y, g, need_x=True), "ssim_bwd_kernel")
-    _, plain = plain_grads(lambda b: ssim_nchw_plain(x, b), (y,), g)
-    plain_ms = cuda_ms(plain, KERNEL_ITERS // 5)
+    plain_ms = cuda_ms(lambda: ssim_nchw_bwd_plain(x, y, g), KERNEL_ITERS // 5)
+    _, autograd = plain_grads(lambda b: ssim_nchw_plain(x, b), (y,), g)
+    autograd_ms = cuda_ms(autograd, KERNEL_ITERS // 5)
     # The same bytes through one PyTorch kernel: read x, y, g, write one map.
     z = torch.empty_like(x)
     stream_ms, _ = device_ms(lambda: torch.addcmul(x, y, g, out=z), "elementwise")
     n = x.numel()
     bound_ms, bound_by = bound(4 * n * 4, n * (9 * 8 + 60 + 3 * 18 + 6))
+    dx_bound_ms, _ = bound(5 * n * 4, n * (9 * 8 + 70 + 4 * 18 + 12))
     log(f"  ssim_nchw_bwd [{PAIRS},3,{H},{W}] -> d/dy: kernel {ms:.4f} ms (events), device "
         f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), with d/dx "
-        f"too {dx_ms:.4f} ms, plain (autograd) {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}); torch.addcmul of x, y, g (the same bytes) {stream_ms:.4f} ms")
+        f"too {dx_ms:.4f} ms ({100 * dx_bound_ms / dx_ms:.0f}% of its {dx_bound_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, autograd of the plain forward {autograd_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); torch.addcmul of x, y, g (the same bytes) "
+        f"{stream_ms:.4f} ms")
     return {"name": "ssim_nchw_bwd", "route": "cuda",
             "source": "sc_sfmlearner_release_tpu_torch/csrc/ssim_bwd.cu",
             "replaces": "sc_sfmlearner_release_tpu/ops/pallas_ssim.py:150",
             "max_abs_err": err, "max_err_is": "relative to max|ref|", "tolerance": GRAD_TOL,
             "ms": ms, "device_ms": dev_ms, "device_ms_by": dev_by,
-            "bound_share": bound_ms / dev_ms, "dx_dy_device_ms": dx_ms, "plain_ms": plain_ms,
+            "bound_share": bound_ms / dev_ms, "dx_dy_device_ms": dx_ms,
+            "dx_dy_bound_ms": dx_bound_ms, "plain_ms": plain_ms, "autograd_ms": autograd_ms,
             "bound_ms": bound_ms, "bound_us": bound_ms * 1e3, "bound_by": bound_by,
             "library_ms": None, "stream_ms": stream_ms}
 

@@ -8,7 +8,9 @@ statistics, ``clip((1 - SSIM) / 2, 0, 1)`` (0 = identical).
 CUDA tensors and runs ``ssim_nchw_plain`` on CPU tensors. On CUDA tensors
 that need a gradient it goes through an autograd Function whose backward
 launches ``csrc/ssim_bwd.cu`` (``ssim_nchw_bwd``): d/dy, and d/dx only when
-x needs one. There is no fallback to the plain path on a CUDA tensor.
+x needs one. ``ssim_nchw_bwd_plain`` is that kernel's algorithm in tensor
+ops, which ``ssim_nchw_bwd`` runs on CPU tensors. There is no fallback to
+the plain path on a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ def _mean3(a: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 def ssim_nchw_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`ssim_nchw`: ``[F, C, H, W]`` -> same shape.
-    Its autograd is the plain version of :func:`ssim_nchw_bwd`."""
+    Its autograd is the reference for :func:`ssim_nchw_bwd`."""
     h, w = x.shape[-2:]
     xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
     yp = F.pad(y, (1, 1, 1, 1), mode="reflect")
@@ -51,6 +53,53 @@ def ssim_nchw_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     n = (2.0 * mu_x * mu_y + C1) * (2.0 * sigma_xy + C2)
     d = (mu_x * mu_x + mu_y * mu_y + C1) * (sigma_x + sigma_y + C2)
     return torch.clamp((1.0 - n / d) / 2.0, 0.0, 1.0)
+
+
+def _fold3(m: torch.Tensor, dim: int) -> torch.Tensor:
+    """Adjoint of a reflect-padded 3-tap window sum along ``dim``: each index
+    sums the windows that read it, zero beyond the edges; index 1 reads
+    window 0 once more and index n-2 window n-1 (the pad's reflected taps)."""
+    n = m.shape[dim]
+    p = F.pad(m.movedim(dim, -1), (1, 1)).movedim(-1, dim)
+    s = (p.narrow(dim, 0, n) + p.narrow(dim, 1, n)) + p.narrow(dim, 2, n)
+    s.narrow(dim, 1, 1).add_(m.narrow(dim, 0, 1))
+    s.narrow(dim, n - 2, 1).add_(m.narrow(dim, n - 1, 1))
+    return s
+
+
+def ssim_nchw_bwd_plain(
+    x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, need_x: bool = False
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Plain version of :func:`ssim_nchw_bwd`, the kernel's algorithm in
+    tensor ops: the window statistics and the clip's mask as the forward
+    computes them, the per-window coefficients of ``csrc/ssim_bwd.cu``, and
+    their transposed 3x3 sum through the reflect pad. ``(d/dx or None,
+    d/dy)`` of ``sum(g * ssim_nchw_plain(x, y))``."""
+    h, w = x.shape[-2:]
+    xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
+    yp = F.pad(y, (1, 1, 1, 1), mode="reflect")
+    mu_x = _mean3(xp, h, w)
+    mu_y = _mean3(yp, h, w)
+    sigma_x = _mean3(xp * xp, h, w) - mu_x * mu_x
+    sigma_y = _mean3(yp * yp, h, w) - mu_y * mu_y
+    sigma_xy = _mean3(xp * yp, h, w) - mu_x * mu_y
+    a = 2.0 * mu_x * mu_y + C1
+    b = 2.0 * sigma_xy + C2
+    d1 = mu_x * mu_x + mu_y * mu_y + C1
+    d2 = sigma_x + sigma_y + C2
+    d = d1 * d2
+    r = (a * b) / d
+    val = (1.0 - r) / 2.0
+    # t: 2/9 of d loss / d n; each map is d loss / d (one window sum).
+    t = torch.where((val >= 0.0) & (val <= 1.0), g, torch.zeros_like(g)) * (-1.0 / 9.0) / d
+    tr = t * r
+    dm = t * b - t * a
+    dv = tr * d1 - tr * d2
+    fold = lambda m: _fold3(_fold3(m, -1), -2)
+    t_yy2, t_xy = fold(-tr * d1), fold(t * a)  # 2 a_yy and a_xy, summed
+    dy = (fold(mu_x * dm + mu_y * dv) + y * t_yy2) + x * t_xy
+    dx = (fold(mu_y * dm + mu_x * dv) + x * t_yy2) + y * t_xy if need_x else None
+    return dx, dy
 
 
 def ssim(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -85,8 +134,6 @@ def _check(name: str, tensors) -> None:
     f, c, h, w = x.shape
     if h < 2 or w < 2:
         raise ValueError(f"{name}: reflect padding needs H, W >= 2, got {h}x{w}")
-    if f * c > 65535:
-        raise ValueError(f"{name}: too large, shape {tuple(x.shape)}")
 
 
 def _launch_fwd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -102,9 +149,11 @@ def _launch_fwd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def ssim_nchw_bwd(
     x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, need_x: bool = False
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
-    """Launch the backward kernel: ``(d/dx or None, d/dy)`` of
-    ``sum(g * ssim_nchw(x, y))``, all ``[F, C, H, W]`` on one CUDA device.
-    CUDA only; its plain version is the autograd of :func:`ssim_nchw_plain`."""
+    """``(d/dx or None, d/dy)`` of ``sum(g * ssim_nchw(x, y))``, all
+    ``[F, C, H, W]``: the backward kernel on one CUDA device, its plain
+    version :func:`ssim_nchw_bwd_plain` on CPU tensors."""
+    if all(t.device.type == "cpu" for t in (x, y, g)):
+        return ssim_nchw_bwd_plain(x, y, g, need_x)
     _check("ssim_nchw_bwd", (x, y, g))
     f, c, h, w = x.shape
     dy = torch.empty_like(y)

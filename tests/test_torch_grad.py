@@ -8,7 +8,12 @@ through these plain versions. Here that autograd is held against JAX's:
     d(coords) and d(source depth), with the RGB channels behind the depth
     sampled without gradient, as ``inverse_warp2`` samples them;
   * ``ssim_nchw_plain`` against JAX ``ssim_nchw``, d/dx and d/dy, on ragged
-    shapes whose every row and column is within reach of a reflect edge.
+    shapes whose every row and column is within reach of a reflect edge;
+  * ``ssim_nchw_bwd`` on CPU tensors, which runs ``ssim_nchw_bwd_plain``,
+    the backward kernel's algorithm written out (window statistics, the
+    clip's mask, the coefficient maps, their transposed 3x3 sum with the
+    reflect pad's fold), against JAX's gradient and against autograd of
+    ``ssim_nchw_plain`` on the same shapes, for d/dy alone and with d/dx.
 
 Tolerance: max|err| <= 1e-5 * max|ref| per gradient. Both sides compute
 the same fp32 derivative, summed in different orders (and the port scales
@@ -28,7 +33,7 @@ import torch
 
 from sc_sfmlearner_release_tpu.ops.grid_sample import grid_sample as jax_grid_sample
 from sc_sfmlearner_release_tpu.ops.ssim import ssim_nchw as jax_ssim_nchw
-from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw_plain
+from sc_sfmlearner_release_tpu_torch.ops.ssim import ssim_nchw_bwd, ssim_nchw_plain
 from sc_sfmlearner_release_tpu_torch.ops.warp import warp_sample_plain
 
 TOL = 1e-5
@@ -87,9 +92,11 @@ def test_warp_plain_grads_match_jax(padding_mode, kind):
     assert rgb_t.grad is None  # the camera images get no gradient
 
 
-@pytest.mark.parametrize("pair", ["independent", "correlated"])
-@pytest.mark.parametrize("shape", [(2, 3, 5, 7), (1, 3, 2, 2), (1, 2, 9, 4), (2, 1, 13, 17)])
-def test_ssim_plain_grads_match_jax(shape, pair):
+SSIM_SHAPES = [(2, 3, 5, 7), (1, 3, 2, 2), (1, 2, 9, 4), (2, 1, 13, 17)]
+
+
+def _ssim_inputs(shape, pair: str):
+    """x, y, g and JAX's (d/dx, d/dy) of ``sum(g * ssim_nchw(x, y))``."""
     rng = np.random.RandomState(sum(shape))
     x = rng.rand(*shape).astype(np.float32)
     if pair == "independent":
@@ -97,11 +104,38 @@ def test_ssim_plain_grads_match_jax(shape, pair):
     else:
         y = np.clip(x + rng.randn(*shape) * 0.05, 0.0, 1.0).astype(np.float32)
     g = rng.randn(*shape).astype(np.float32)
-
     jax_loss = lambda a, b: jnp.sum(jax_ssim_nchw(a, b) * g)
-    ref_x, ref_y = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    ref = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(y))
+    return x, y, g, ref
+
+
+@pytest.mark.parametrize("pair", ["independent", "correlated"])
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
+def test_ssim_plain_grads_match_jax(shape, pair):
+    x, y, g, (ref_x, ref_y) = _ssim_inputs(shape, pair)
     tx = torch.from_numpy(x).requires_grad_(True)
     ty = torch.from_numpy(y).requires_grad_(True)
     ssim_nchw_plain(tx, ty).backward(torch.from_numpy(g))
     _close(tx.grad, ref_x, "d/dx", SSIM_TOL[pair])
     _close(ty.grad, ref_y, "d/dy", SSIM_TOL[pair])
+
+
+@pytest.mark.parametrize("need_x", [False, True])
+@pytest.mark.parametrize("pair", ["independent", "correlated"])
+@pytest.mark.parametrize("shape", SSIM_SHAPES)
+def test_ssim_bwd_plain_matches_jax(shape, pair, need_x):
+    x, y, g, (ref_x, ref_y) = _ssim_inputs(shape, pair)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = torch.from_numpy(y).requires_grad_(True)
+    auto_x, auto_y = torch.autograd.grad(ssim_nchw_plain(tx, ty), (tx, ty), torch.from_numpy(g))
+    launches = ssim_nchw_bwd.launches
+    dx, dy = ssim_nchw_bwd(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(g), need_x)
+    assert ssim_nchw_bwd.launches == launches  # CPU tensors: no kernel
+    assert dy.shape == y.shape and dy.dtype == torch.float32
+    _close(dy, ref_y, "d/dy vs jax.grad", SSIM_TOL[pair])
+    _close(dy, auto_y, "d/dy vs autograd", SSIM_TOL[pair])
+    if need_x:
+        _close(dx, ref_x, "d/dx vs jax.grad", SSIM_TOL[pair])
+        _close(dx, auto_x, "d/dx vs autograd", SSIM_TOL[pair])
+    else:
+        assert dx is None

@@ -206,9 +206,13 @@ def test_kernel_sources_name_what_they_replace(name, replaces):
 
 def test_ssim_variants_still_apply_to_the_kernel_source():
     sources = ssim_variants.variant_sources()
-    assert set(sources) == set(ssim_variants.VARIANTS)
-    for name, src in sources.items():
-        assert (src == sources["kernel"]) == (name == "kernel"), name
+    tables = ((ssim_variants.VARIANTS, "ssim.cu", "kernel"),
+              (ssim_variants.BWD_VARIANTS, "ssim_bwd.cu", "bwd_kernel"))
+    assert set(sources) == {name for table, _, _ in tables for name in table}
+    for table, source, base in tables:
+        for name in table:
+            assert sources[name][0] == source, name
+            assert (sources[name][1] == sources[base][1]) == (name == base), name
 
 
 def test_ssim_variants_fail_without_a_card(monkeypatch):
