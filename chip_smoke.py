@@ -35,8 +35,22 @@ when it fails:
    step time fed a numpy batch and with the batch on the card; peak memory.
    Then the fp32 train step on the card against the CPU's plain step at
    B2 N2 128x416 (full-width ResNet-18): losses and every gradient.
-6. Output: a ``{"kernels": [...]}`` line (launches per train step), the
-   nvidia-smi line, and last ``{"ok": true, "device": {...}}``.
+6. This slice's main path, the train CLI from disk: a packed dataset written
+   from ``--seed`` (two train scenes of 24 frames and a val scene of 12 at
+   832x256), ``python -m sc_sfmlearner_release_tpu_torch.train`` through
+   its ``main`` for 2 epochs of 10 steps (B4 N2, ``--packed
+   --device-augment``, bf16) with the launch counts at 0 just before it:
+   every kernel launches in every train step, 20 finite loss rows, the
+   checkpoints load into fresh networks; the restored Adam state equals the
+   saved one and a ``--resume`` epoch continues at step 21. The
+   augmentation on the card against the CPU with the same draws, one fp32
+   ``remat`` step against a plain one (losses, BatchNorm statistics), and
+   times: the CLI's steady step and data wait, its loader alone, the same
+   step on a batch on the card, the augmentation, and the pinned uint8 copy
+   against a pageable fp32 one.
+7. Output: a ``{"kernels": [...]}`` line (``launches``: the CLI run's, with
+   every path's in ``launches_by_path``), the nvidia-smi line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Without a card it exits non-zero and prints no result.
 """
@@ -44,9 +58,15 @@ Without a card it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import csv
 import ctypes
+import glob
+import io
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -56,7 +76,10 @@ import torch
 import torch.nn.functional as F
 
 from sc_sfmlearner_release_tpu_torch import disable_tf32
+from sc_sfmlearner_release_tpu_torch import train as train_cli
+from sc_sfmlearner_release_tpu_torch.data import BatchLoader, PackedSequenceSet, device_augment
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
+from sc_sfmlearner_release_tpu_torch.models.convert import load_torch_state_dict
 from sc_sfmlearner_release_tpu_torch.ops import _build
 from sc_sfmlearner_release_tpu_torch.ops.geometry import project_pixel_coords
 from sc_sfmlearner_release_tpu_torch.ops.ssim import (
@@ -65,10 +88,12 @@ from sc_sfmlearner_release_tpu_torch.ops.ssim import (
 from sc_sfmlearner_release_tpu_torch.ops.warp import (
     warp_sample, warp_sample_bwd, warp_sample_plain,
 )
+from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch
 from sc_sfmlearner_release_tpu_torch.training import (
     LossConfig, create_train_state, make_eval_step, make_inference_fn, make_optimizer,
     make_train_step,
 )
+from sc_sfmlearner_release_tpu_torch.training.checkpoint import restore_train_state
 
 DEVICE = "cuda"
 B, N, H, W = 4, 2, 256, 832
@@ -805,6 +830,272 @@ def train_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
     return launches
 
 
+# The trainer phase: the canonical KITTI run (scripts/train_resnet18_depth_256.sh)
+# at full width, from a packed dataset written in data/packed.py's format.
+CLI_SCENES = (("train_a", 24), ("train_b", 24), ("val_a", 12))
+CLI_EPOCHS, CLI_EPOCH_SIZE, CLI_VAL_BATCHES = 2, 10, 2
+CLI_STEPS = CLI_EPOCHS * CLI_EPOCH_SIZE
+TRAINER_DIR = os.path.join("build", "chip_smoke_trainer")
+AUG_TOL = 1e-5           # abs on normalized frames; intrinsics rel
+REMAT_LOSS_RTOL = 1e-5   # the remat step's forward is the plain step's
+REMAT_STATS_TOL = 1e-6   # abs, BatchNorm running statistics
+
+
+def write_packed_dataset(root: str, seed: int) -> int:
+    """CLI_SCENES as a packed dataset under ``root/packed``: per scene a
+    camera panning over a texture (8x8-pixel blocks of noise with finer noise
+    on them), 2 pixels per frame, with KITTI's intrinsics. Returns the
+    frames' bytes."""
+    rng = np.random.RandomState(seed)
+    packed = os.path.join(root, "packed")
+    os.makedirs(packed)
+    n_frames = sum(n for _, n in CLI_SCENES)
+    frames = np.memmap(os.path.join(packed, "frames.u8"), np.uint8, "w+",
+                       shape=(n_frames, H, W, 3))
+    scenes, start = {}, 0
+    for name, count in CLI_SCENES:
+        coarse = rng.randint(32, 224, (-(-H // 8), -(-(W + 2 * count) // 8), 3))
+        texture = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:H, :W + 2 * count]
+        texture = np.clip(texture + rng.randint(-24, 25, texture.shape), 0, 255).astype(np.uint8)
+        for i in range(count):
+            frames[start + i] = texture[:, 2 * i:2 * i + W]
+        scenes[name] = {"start": start, "count": count,
+                        "intrinsics": kitti_intrinsics(1)[0].tolist()}
+        start += count
+    frames.flush()
+    del frames
+    index = {"height": H, "width": W, "n_frames": n_frames, "scenes": scenes,
+             "train": [n for n, _ in CLI_SCENES if n.startswith("train")],
+             "val": [n for n, _ in CLI_SCENES if n.startswith("val")]}
+    with open(os.path.join(packed, "index.json"), "w") as f:
+        json.dump(index, f)
+    return n_frames * H * W * 3
+
+
+def run_cli(root: str, name: str, seed: int, *extra: str) -> str:
+    """``train.main`` from ``root`` (where ``checkpoints/`` lands) on the
+    canonical configuration; returns the experiment directory. The CLI's
+    progress lines are printed after it ends."""
+    argv = [root, "--name", name, "--packed", "--device-augment",
+            "--with-pretrain", "0", "-b", str(B), "--sequence-length", str(1 + N),
+            "--with-auto-mask", "1", "--epochs", str(CLI_EPOCHS), "--epoch-size",
+            str(CLI_EPOCH_SIZE), "--val-batches", str(CLI_VAL_BATCHES), "--no-tensorboard",
+            "--log-style", "line", "--seed", str(seed), *extra]
+    out = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        with contextlib.redirect_stdout(out):
+            code = train_cli.main(argv)
+    finally:
+        os.chdir(cwd)
+        for line in out.getvalue().replace("\r", "\n").splitlines():
+            if line.strip():
+                log(f"  [cli] {line.strip()}")
+    if code != 0:
+        raise AssertionError(f"train CLI exited {code}")
+    (path,) = glob.glob(os.path.join(root, "checkpoints", name, "*"))
+    return path
+
+
+def read_rows(path: str):
+    with open(path) as f:
+        return list(csv.reader(f, delimiter="\t"))[1:]
+
+
+def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
+    """The train CLI from disk (this slice's main path): launches, logs,
+    checkpoints, the restored state and a resumed epoch."""
+    root = os.path.abspath(TRAINER_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    n_bytes = write_packed_dataset(root, seed)
+    log(f"[cli] packed dataset {CLI_SCENES} at {W}x{H}: {n_bytes / 1e6:.1f} MB")
+    val_samples = sum(n - N for name, n in CLI_SCENES if name.startswith("val"))
+    val_batches = CLI_EPOCHS * min(CLI_VAL_BATCHES, -(-val_samples // B))
+
+    zero_launches()
+    save = run_cli(root, "smoke", seed)
+    launches = read_launches()
+    want = {k: CLI_STEPS * per_step[k] + val_batches * per_validation[k] for k in WRAPPERS}
+    log(f"[cli] launches over {CLI_STEPS} train steps and {val_batches} validation batches: "
+        f"{launches} (each train step launches {per_step})")
+    if launches != want or min(per_step.values()) < 1:
+        raise AssertionError(f"CLI launches {launches}, expected {want}")
+
+    rows = read_rows(os.path.join(save, "progress_log_full.csv"))
+    losses = [float(r[0]) for r in rows]
+    if len(rows) != CLI_STEPS or not all(np.isfinite(float(v)) for r in rows for v in r):
+        raise AssertionError(f"progress_log_full.csv: {len(rows)} rows {rows}")
+    log(f"[cli] {len(rows)} finite loss rows, first {losses[0]:.5f} last {losses[-1]:.5f}")
+    for prefix, net in (("dispnet", DispNet(18)), ("exp_pose", PoseNet(18))):
+        for kind in ("checkpoint", "model_best"):
+            net.load_state_dict(load_torch_state_dict(
+                os.path.join(save, f"{prefix}_{kind}.pth.tar")))
+    log("[cli] dispnet/exp_pose checkpoint and model_best files load into fresh networks")
+
+    # The saved train state, restored on the card into fresh networks.
+    disp_net, pose_net = make_nets(seed + 7)
+    disp_net.to(DEVICE)
+    pose_net.to(DEVICE)
+    state = restore_train_state(save, create_train_state(disp_net, pose_net))
+    saved = torch.load(os.path.join(save, "train_state.pth.tar"), weights_only=True)
+    moments = state.optimizer.state_dict()["state"]
+    same = all(torch.equal(moments[i][k].cpu(), saved["optimizer"]["state"][i][k])
+               for i in saved["optimizer"]["state"] for k in ("exp_avg", "exp_avg_sq"))
+    if state.step != CLI_STEPS or not same or len(moments) < 100:
+        raise AssertionError(f"restored step {state.step}, Adam moments equal: {same}")
+    log(f"[cli] restored on the card: step {state.step}, Adam moments of {len(moments)} "
+        "tensors equal to the saved ones")
+    del state, disp_net, pose_net
+
+    resumed = run_cli(root, "smoke_resume", seed, "--epochs", "1", "--resume", save)
+    steps = [int(r[0]) for r in read_rows(os.path.join(resumed, train_cli.TIME_LOG))]
+    if steps != list(range(CLI_STEPS + 1, CLI_STEPS + CLI_EPOCH_SIZE + 1)):
+        raise AssertionError(f"resumed run's steps {steps}")
+    log(f"[cli] --resume: steps {steps[0]}..{steps[-1]}")
+
+    # The loader alone, as the CLI makes it (8 threads, pinned batches).
+    loader = BatchLoader(PackedSequenceSet(os.path.join(root, "packed")), B, num_workers=8,
+                         pin_memory=True)
+    t = time.perf_counter()
+    n_loaded = sum(1 for _ in loader)
+    loader_ms = (time.perf_counter() - t) * 1e3 / n_loaded
+
+    timing = read_rows(os.path.join(save, train_cli.TIME_LOG))
+    step_ms = [1e3 * float(r[2]) for r in timing]
+    wait_ms = [1e3 * float(r[1]) for r in timing]
+    times = {"cli_first_step_ms": step_ms[0],
+             "cli_step_ms_median_after_first": float(np.median(step_ms[1:])),
+             "cli_step_ms_range_after_first": [min(step_ms[1:]), max(step_ms[1:])],
+             "cli_data_wait_ms_median_after_first": float(np.median(wait_ms[1:])),
+             "cli_data_wait_ms_mean_after_first": float(np.mean(wait_ms[1:])),
+             "loader_alone_ms_per_batch": loader_ms}
+    log(f"[cli] times (host clock; the CLI syncs only at --print-freq and the epoch's end): "
+        f"{times}")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def uint8_snippet(rng: np.random.RandomState) -> dict:
+    return {"tgt": rng.randint(0, 256, (B, H, W, 3)).astype(np.uint8),
+            "refs": rng.randint(0, 256, (B, N, H, W, 3)).astype(np.uint8),
+            "intrinsics": kitti_intrinsics(B)}
+
+
+def augment_phase(seed: int, rng: np.random.RandomState) -> dict:
+    """The augmentation on uint8 [4, 1+2, 256, 832, 3] on the card against
+    the CPU with the same draws; its device time."""
+    cfg = device_augment.AugmentConfig()
+    augment = device_augment.make_device_augment(cfg)
+    batch = uint8_snippet(rng)
+    cpu = augment(device_augment.step_generator(seed, 0),
+                  {k: torch.from_numpy(v) for k, v in batch.items()})
+    on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
+    card = augment(device_augment.step_generator(seed, 0), on_card)
+    torch.cuda.synchronize()
+    err = max(check_close(f"augment {k}", card[k].cpu(), cpu[k], AUG_TOL)
+              for k in ("tgt", "refs"))
+    check_rel("augment intrinsics", card["intrinsics"].cpu(), cpu["intrinsics"], AUG_TOL)
+    # As in the step: the draws and the affine map are made on the CPU and
+    # copied; the graph holds the device's share (resample, normalize).
+    draws = device_augment.sample_draws(device_augment.step_generator(seed, 0), B, cfg)
+    affine = device_augment._affine_on(DEVICE, draws, H, W)
+    resample = lambda: device_augment._apply_affine(
+        device_augment._to_unit_float(on_card), affine, cfg)
+    times = {"augment_device_ms": graph_ms(resample, 20),
+             "augment_call_ms": cuda_ms(lambda: augment(device_augment.step_generator(seed, 0),
+                                                        on_card), 20)}
+    log(f"[augment] uint8 [{B},{1 + N},{H},{W},3] on the card vs the CPU: max|err| {err:.3e}; "
+        f"times (device_ms from a CUDA-graph replay of the resample and normalize at the "
+        f"affine map the CPU made; call_ms "
+        f"CUDA events around the whole call, the CPU draws and their copies included): "
+        f"{times}")
+    return times
+
+
+def remat_phase(seed: int, rng: np.random.RandomState) -> None:
+    """One fp32 ``remat`` step on the card against a plain step from the
+    same state: losses and BatchNorm running statistics."""
+    batch = make_batch(rng)
+    nets = make_nets(seed + 3)
+    twins = tuple(copy.deepcopy(n) for n in nets)
+    plain = make_train_step(*nets, make_optimizer(*nets), device=DEVICE, precision="fp32")
+    remat = make_train_step(*twins, make_optimizer(*twins), device=DEVICE, precision="fp32",
+                            remat=True)
+    got = {k: v.item() for k, v in remat(batch).items()}
+    want = {k: v.item() for k, v in plain(batch).items()}
+    for k in METRICS:
+        rel = abs(got[k] - want[k]) / max(abs(want[k]), 1e-12)
+        log(f"  remat fp32 {k}: {got[k]:.7f} plain {want[k]:.7f} rel {rel:.2e} "
+            f"(tol {REMAT_LOSS_RTOL:.0e})")
+        if not rel <= REMAT_LOSS_RTOL:
+            raise AssertionError(f"remat {k}: {got[k]} vs plain {want[k]}")
+    worst = 0.0
+    for a, b in zip(nets, twins):
+        for (name, x), (_, y) in zip(a.named_buffers(), b.named_buffers()):
+            if name.endswith("num_batches_tracked"):
+                if int(x) != 1 or int(y) != 1:
+                    raise AssertionError(f"{name}: moved {int(y)} times under remat")
+            else:
+                worst = max(worst, (x - y).abs().max().item())
+    log(f"  remat fp32 BatchNorm running statistics: max|err| {worst:.3e} "
+        f"(tol {REMAT_STATS_TOL:.0e}), each moved once")
+    if not worst <= REMAT_STATS_TOL:
+        raise AssertionError(f"remat running statistics off by {worst}")
+
+
+def staging_phase(seed: int, rng: np.random.RandomState) -> dict:
+    """The CLI's step on a batch already on the card, and the host-to-card
+    copy of one batch: pinned uint8 through ``device_prefetch`` against
+    pageable fp32."""
+    u8 = uint8_snippet(rng)
+    disp_net, pose_net = make_nets(seed + 5)
+    augment = device_augment.make_device_augment(device_augment.AugmentConfig())
+    step = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+                           device=DEVICE, augment_fn=augment, aug_seed=seed)
+    on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in u8.items()}
+    times = {"cli_config_step_batch_on_card_ms": host_ms(lambda: step(on_card))}
+    del step, disp_net, pose_net
+
+    pinned = {k: torch.from_numpy(v).pin_memory() for k, v in u8.items()}
+    f32 = {k: (v.astype(np.float32) / 255.0 if v.dtype == np.uint8 else v)
+           for k, v in u8.items()}
+    # The step thread's time per batch taken from a running device_prefetch.
+    staged = device_prefetch((pinned for _ in range(STEP_ITERS + 3)), DEVICE)
+    for _ in range(3):
+        next(staged)
+    taken = []
+    for _ in range(STEP_ITERS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        next(staged)
+        taken.append((time.perf_counter() - t) * 1e3)
+    # The copy's own device time, on a side stream as device_prefetch makes it.
+    side = torch.cuda.Stream()
+    copies = []
+    for _ in range(STEP_ITERS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(side):
+            start.record()
+            on_card = {k: v.to(DEVICE, non_blocking=True) for k, v in pinned.items()}
+            end.record()
+        end.synchronize()
+        copies.append(start.elapsed_time(end))
+    times.update({
+        "prefetch_u8_pinned_host_ms": float(np.median(taken)),
+        "u8_pinned_copy_device_ms": float(np.median(copies)),
+        "pageable_f32_ms": host_ms(lambda: {k: torch.from_numpy(v).to(DEVICE)
+                                            for k, v in f32.items()}),
+        "u8_batch_mb": sum(v.nbytes for v in u8.values()) / 1e6,
+        "f32_batch_mb": sum(v.nbytes for v in f32.values()) / 1e6})
+    log(f"[staging] times (median of {STEP_ITERS}; prefetch_u8_pinned_host_ms: the step "
+        f"thread's time to take a batch from a running device_prefetch, host clock; "
+        f"u8_pinned_copy_device_ms: CUDA events around the pinned copy on a side stream; "
+        f"pageable_f32_ms: host clock around the blocking copy of the same batch in fp32): "
+        f"{times}")
+    return times
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -827,8 +1118,17 @@ def main(argv=None) -> int:
     del inputs
     by_path = slice_phase(args.seed, rng, args.profile)
     by_path["train_step"] = train_phase(args.seed, rng, args.profile)
+    log("[augment] the device augmentation on the card against the CPU")
+    augment_phase(args.seed, rng)
+    log("[remat] an fp32 remat step on the card against a plain step")
+    remat_phase(args.seed, rng)
+    log("[cli] the train CLI from a packed dataset on disk")
+    by_path["train_cli"] = cli_phase(args.seed, by_path["train_step"],
+                                     by_path["validation_step"])
+    staging_phase(args.seed, rng)
     for k in kernels:
-        k["launches"] = by_path["train_step"][k["name"]]
+        k["launches"] = by_path["train_cli"][k["name"]]
+        k["launches_per_train_step"] = by_path["train_step"][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

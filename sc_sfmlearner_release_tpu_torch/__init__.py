@@ -14,13 +14,18 @@ kernel on a CUDA tensor, through an autograd Function whose backward is
 the backward kernel when a gradient is needed, and runs its plain PyTorch
 version on a CPU tensor.
 
-Entry points (``training/``): ``make_train_step`` (forward in train mode,
-3-term loss, backward, Adam from ``make_optimizer``), ``make_eval_step``
-(photometric validation), ``make_eval_depth_step`` (ground-truth depth
-metrics) and ``make_inference_fn``.
+Entry points: the train CLI (``python -m sc_sfmlearner_release_tpu_torch.train``,
+``train.py``) and, in ``training/``, ``make_train_step`` (forward in train
+mode, 3-term loss, backward, Adam from ``make_optimizer``; ``remat`` and a
+device ``augment_fn``), ``make_eval_step`` (photometric validation),
+``make_eval_depth_step`` (ground-truth depth metrics), ``make_inference_fn``
+and the checkpoints (``training/checkpoint.py``). Host data (``data/``: the
+dataset crawlers, the packed uint8 format, the batch loader, the host
+transforms, the device augmentation) reaches the card through
+``parallel.device_prefetch``.
 
-Entry points take ``device=None``, which means ``"cuda"``, and raise when no
-card is present unless the caller asks for ``device="cpu"``.
+Entry points take ``device=None`` (the CLI ``--device cuda``), which means
+CUDA, and raise when no card is present unless the caller asks for the CPU.
 """
 
 from __future__ import annotations

@@ -10,7 +10,10 @@ mechanically:
     <-> ``weight/bias/running_mean/running_var``.
 
 This is the port's own copy of the mapping in the JAX package's
-``models/convert.py``; it imports nothing from that package.
+``models/convert.py``; it imports nothing from that package. Reference
+checkpoints (``{'epoch', 'state_dict'}`` ``.pth.tar``) load straight into
+the port's networks (:func:`load_torch_state_dict`), and torchvision's
+ImageNet ResNets into their encoders (:func:`graft_imagenet_encoder`).
 """
 
 from __future__ import annotations
@@ -190,3 +193,49 @@ def gradient_state_dict(module: torch.nn.Module) -> StateDict:
     for name, p in module.named_parameters():
         sd[name] = p.grad if p.grad is not None else torch.zeros_like(p)
     return sd
+
+
+def load_torch_state_dict(path: str) -> StateDict:
+    """A ``.pth``/``.pth.tar`` file's state dict on the CPU: the reference's
+    ``{'epoch', 'state_dict'}`` wrapper or a bare state dict (torchvision's).
+    Loads with ``weights_only=True``."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    sd = blob.get("state_dict", blob) if isinstance(blob, dict) else blob
+    return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
+
+
+def save_torch_checkpoint(state_dict: Mapping[str, Any], path: str, epoch: int = 0) -> None:
+    """Write a reference-format ``{'epoch', 'state_dict'}`` ``.pth.tar``."""
+    tensors = {k: (v.detach().cpu() if isinstance(v, torch.Tensor) else torch.as_tensor(v))
+               for k, v in state_dict.items()}
+    torch.save({"epoch": epoch, "state_dict": tensors}, path)
+
+
+def graft_imagenet_encoder(
+    net: torch.nn.Module, sd: Mapping[str, torch.Tensor], num_layers: int,
+    num_input_images: int = 1,
+) -> torch.nn.Module:
+    """Load a torchvision ImageNet ResNet state dict (``conv1.weight``,
+    ``layer1.0.bn1.running_mean``, ...; its ``fc`` is dropped) into the
+    encoder of ``net`` (a ``DispNet`` or ``PoseNet`` of ``num_layers``), in
+    place; the decoder keeps its initialisation. For ``num_input_images`` >
+    1 the 3-channel ``conv1`` is tiled over the images and divided by their
+    number, as the reference's multi-image encoder does (reference
+    resnet_encoder.py:54-58)."""
+    encoder = net.encoder.encoder
+    layout = (tuple(len(getattr(encoder, f"layer{i}")) for i in range(1, 5)),
+              hasattr(encoder.layer1[0], "conv3"), encoder.conv1.in_channels)
+    if layout != (STAGE_BLOCKS[num_layers], BOTTLENECK[num_layers], 3 * num_input_images):
+        raise ValueError(f"net's encoder (blocks, bottleneck, input channels) {layout} is "
+                         f"not a ResNet-{num_layers} of {num_input_images} image(s)")
+    # torchvision's published ImageNet files predate BatchNorm's
+    # ``num_batches_tracked``, so only parameters and running statistics are
+    # read; the counters keep their initialisation.
+    own = [k for k in encoder.state_dict() if not k.endswith("num_batches_tracked")]
+    weights = {k: torch.as_tensor(sd[k]) for k in own}
+    if num_input_images > 1:
+        weights["conv1.weight"] = (torch.cat([weights["conv1.weight"]] * num_input_images, 1)
+                                   / num_input_images)
+    missing, unexpected = encoder.load_state_dict(weights, strict=False)
+    assert not unexpected and all(k.endswith("num_batches_tracked") for k in missing)
+    return net

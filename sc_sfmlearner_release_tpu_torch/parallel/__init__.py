@@ -1,0 +1,3 @@
+from .prefetch import device_prefetch
+
+__all__ = ["device_prefetch"]

@@ -9,3 +9,4 @@ from .step import (
     make_train_step,
     total_loss,
 )
+from .checkpoint import restore_train_state, save_checkpoint

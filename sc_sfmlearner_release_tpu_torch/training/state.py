@@ -15,6 +15,16 @@ import torch
 import torch.nn as nn
 
 
+def optimizer_step(optimizer: torch.optim.Optimizer) -> int:
+    """Optimizer steps taken: Adam's own count (0 before the first)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                return int(state["step"])
+    return 0
+
+
 @dataclasses.dataclass
 class TrainState:
     disp_net: nn.Module
@@ -25,12 +35,25 @@ class TrainState:
     @property
     def step(self) -> int:
         """Optimizer steps taken: Adam's own count (0 before the first)."""
-        for group in self.optimizer.param_groups:
-            for p in group["params"]:
-                state = self.optimizer.state.get(p)
-                if state and "step" in state:
-                    return int(state["step"])
-        return 0
+        return optimizer_step(self.optimizer)
+
+    def state_dict(self) -> dict:
+        """Everything an exact resume needs: both networks (parameters and
+        BatchNorm buffers), the optimizer, the generator and the step."""
+        return {"disp": self.disp_net.state_dict(), "pose": self.pose_net.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "generator": self.generator.get_state(), "step": self.step}
+
+    def load_state_dict(self, blob: dict) -> None:
+        """Inverse of :meth:`state_dict`, in place (tensors go to the
+        devices of the networks they load into)."""
+        self.disp_net.load_state_dict(blob["disp"])
+        self.pose_net.load_state_dict(blob["pose"])
+        self.optimizer.load_state_dict(blob["optimizer"])
+        self.generator.set_state(blob["generator"])
+        if self.step != blob["step"]:
+            raise ValueError(f"restored optimizer is at step {self.step}, "
+                             f"the checkpoint at {blob['step']}")
 
 
 def make_optimizer(

@@ -29,10 +29,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import disable_tf32, resolve_device
+from ..data.device_augment import step_generator
 from ..ops.losses import photo_and_geometry_loss, resize_nearest, smooth_loss
 from ..ops.metrics import compute_depth_errors
+from .state import optimizer_step
 
 PRECISIONS = ("bf16", "fp32")
 Batch = Dict[str, torch.Tensor]
@@ -105,27 +108,47 @@ def compute_pose_with_inv(
     return poses, poses_inv
 
 
-def total_loss(
-    disp_net, pose_net, batch: Batch, cfg: LossConfig,
-    sample_mask: Optional[torch.Tensor] = None, precision: str = "bf16",
-    train: bool = False,
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The weighted 3-term loss of a batch: (total, metrics). Puts both
-    networks in train mode (BatchNorm on batch statistics, running
-    statistics updated) if ``train``, else in eval mode."""
-    disp_net.train(train)
-    pose_net.train(train)
-    tgt, refs, intrinsics = batch["tgt"], batch["refs"], batch["intrinsics"]
-    with conv_autocast(tgt.device, precision):
-        tgt_depth, ref_depths = compute_depth(disp_net, tgt, refs)
-        poses, poses_inv = compute_pose_with_inv(pose_net, tgt, refs)
+def _loss_terms(tgt, refs, intrinsics, tgt_depth, ref_depths, poses, poses_inv,
+                cfg: LossConfig, sample_mask):
     photo, geom = photo_and_geometry_loss(
         tgt, refs, intrinsics, tgt_depth, ref_depths, poses, poses_inv,
         num_scales=cfg.num_scales, with_ssim=cfg.with_ssim,
         with_mask=cfg.with_mask, with_auto_mask=cfg.with_auto_mask,
         padding_mode=cfg.padding_mode, sample_mask=sample_mask,
     )
-    smooth = smooth_loss(tgt_depth, tgt, ref_depths, refs, sample_mask)
+    return photo, geom, smooth_loss(tgt_depth, tgt, ref_depths, refs, sample_mask)
+
+
+def _call(fn, *args):
+    return fn(*args)
+
+
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def total_loss(
+    disp_net, pose_net, batch: Batch, cfg: LossConfig,
+    sample_mask: Optional[torch.Tensor] = None, precision: str = "bf16",
+    train: bool = False, remat: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The weighted 3-term loss of a batch: (total, metrics). Puts both
+    networks in train mode (BatchNorm on batch statistics, running
+    statistics updated) if ``train``, else in eval mode. ``remat`` keeps
+    only the inputs of depth, pose and the loss terms for the backward,
+    which recomputes the rest (``torch.utils.checkpoint``), as the JAX
+    step's ``jax.checkpoint``s. The recomputation runs the networks'
+    forwards again, and with them BatchNorm's running statistics: the train
+    step undoes that second move."""
+    disp_net.train(train)
+    pose_net.train(train)
+    tgt, refs, intrinsics = batch["tgt"], batch["refs"], batch["intrinsics"]
+    run = _remat if remat else _call
+    with conv_autocast(tgt.device, precision):
+        tgt_depth, ref_depths = run(compute_depth, disp_net, tgt, refs)
+        poses, poses_inv = run(compute_pose_with_inv, pose_net, tgt, refs)
+    photo, geom, smooth = run(_loss_terms, tgt, refs, intrinsics, tgt_depth, ref_depths,
+                              poses, poses_inv, cfg, sample_mask)
     total = cfg.photo_weight * photo + cfg.smooth_weight * smooth + cfg.geometry_weight * geom
     metrics = {"loss": total, "photo_loss": photo, "smooth_loss": smooth, "geometry_loss": geom}
     return total, metrics
@@ -143,7 +166,9 @@ def _snippet(batch, device: torch.device) -> Batch:
 
 def make_train_step(
     disp_net, pose_net, optimizer: torch.optim.Optimizer, cfg: LossConfig = LossConfig(),
-    device=None, precision: str = "bf16",
+    device=None, precision: str = "bf16", remat: bool = False,
+    augment_fn: Optional[Callable[[torch.Generator, Batch], Batch]] = None,
+    aug_seed: int = 0, fused_steps: int = 1,
 ) -> Callable[[Batch], Dict[str, torch.Tensor]]:
     """One optimizer step per call, in the JAX step's order: the forward in
     train mode (BatchNorm on batch statistics), the 3-term loss, the
@@ -153,24 +178,53 @@ def make_train_step(
     nothing in the step reads them, so the result is the JAX step's, which
     returns them after the update.
 
+    ``remat`` recomputes the activations of depth, pose and the loss in the
+    backward (:func:`total_loss`); the running statistics still move once
+    per step. ``augment_fn`` (``data.device_augment.make_device_augment``)
+    takes the raw batch in its own dtype (uint8 from a packed loader) on
+    the device, with the CPU generator of (``aug_seed``, step), the step
+    being the optimizer's count before the update: it is read from the
+    optimizer at the first call, and again whenever the optimizer's state
+    has been replaced (``load_state_dict``, as a restore does), and counted
+    on the host in between, so no step waits for the card. ``fused_steps``
+    > 1 (K steps per dispatch) is not ported yet.
+
     Moves both networks to ``device``. Returns ``train_step(batch) ->
     metrics`` (detached 0-d tensors: ``loss``, ``photo_loss``,
-    ``smooth_loss``, ``geometry_loss``). Not ported yet: the JAX step's
-    ``remat``, ``augment_fn`` and ``fused_steps``.
+    ``smooth_loss``, ``geometry_loss``).
     """
+    if fused_steps > 1:
+        raise NotImplementedError("fused_steps > 1 is not ported yet")
     device = resolve_device(device)
     _check_precision(precision)
     disable_tf32()
     disp_net.to(device)
     pose_net.to(device)
+    step, counted_state = None, None
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
-        snippet = _snippet(batch, device)
+        nonlocal step, counted_state
+        # Optimizer.load_state_dict installs a new ``state`` mapping.
+        if optimizer.state is not counted_state:
+            step, counted_state = optimizer_step(optimizer), optimizer.state
+        if augment_fn is None:
+            snippet = _snippet(batch, device)
+        else:
+            raw = {k: _to_device(batch[k], device) for k in ("tgt", "refs", "intrinsics")}
+            snippet = augment_fn(step_generator(aug_seed, step), raw)
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = total_loss(disp_net, pose_net, snippet, cfg, precision=precision,
-                                   train=True)
+                                   train=True, remat=remat)
+        if remat:
+            bn_buffers = [b for net in (disp_net, pose_net) for b in net.buffers()]
+            moved_once = [b.clone() for b in bn_buffers]
         loss.backward()
+        if remat:
+            with torch.no_grad():
+                for b, saved in zip(bn_buffers, moved_once):
+                    b.copy_(saved)
         optimizer.step()
+        step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
