@@ -3,11 +3,12 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed 0] [--profile]
+    python3 chip_smoke.py [--seed 0] [--profile] [--graph-seeds N]
 
 ``--profile`` adds the validation and train steps' device time by kernel
-group (torch.profiler). Phases, each of which fails the run (non-zero exit)
-when it fails:
+group (torch.profiler); ``--graph-seeds N`` repeats phase 7's fp32
+graph-against-eager check from N more seeds. Phases, each of which fails
+the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: every CUDA kernel of the port, compiled from ``csrc/`` for
@@ -48,9 +49,33 @@ when it fails:
    times: the CLI's steady step and data wait, its loader alone, the same
    step on a batch on the card, the augmentation, and the pinned uint8 copy
    against a pageable fp32 one.
-7. Output: a ``{"kernels": [...]}`` line (``launches``: the CLI run's, with
-   every path's in ``launches_by_path``), the nvidia-smi line, and last
-   ``{"ok": true, "device": {...}}``.
+7. The train step as CUDA-graph replays of K steps
+   (``make_train_step(fused_steps=K)``, capturable Adam, device
+   augmentation on uint8 frames) at full width: fp32 (TF32 off) K = 3
+   through three calls (an eager warm-up, a capture and replay, a replay),
+   each call against K eager steps on a deep copy of the same nets and
+   optimizer put in the graph's state before the call, with the same
+   batches, without and with ``remat`` (per-step losses, parameters as the
+   JAX package's fused test bounds them, BatchNorm statistics; each loss
+   term's error relative to the total loss); two more eager copies
+   measure the eager step's own run-to-run noise (the warp backward's
+   atomics, which Adam amplifies from step to step), and each bound is
+   the larger of its fixed value and 4x that noise; the
+   graphed step's launches over two replays with the counts at 0; then
+   bf16 K = 5: its device time per step, the host time of a call that
+   waits for its result, and peak memory.
+8. This slice's main path, the train CLI with ``--fused-steps 5`` on the
+   same packed dataset, 2 epochs of 10 steps (2 dispatches each) with the
+   launch counts at 0 just before it: launches that count the replays, 20
+   finite loss rows, checkpoints that load into fresh networks, a
+   ``--resume`` run without ``--fused-steps`` (a capturable Adam's state
+   into a plain one) that continues at step 21; its step per optimizer
+   step and data wait, peak memory. Then ``--profile-dir`` traces of one
+   eager CLI dispatch and one fused one, each summarized (kernels
+   recorded, device busy time, launches on the host).
+9. Output: a ``{"kernels": [...]}`` line (``launches``: the fused CLI
+   run's, with every path's in ``launches_by_path``), the nvidia-smi line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Without a card it exits non-zero and prints no result.
 """
@@ -80,7 +105,7 @@ from sc_sfmlearner_release_tpu_torch import train as train_cli
 from sc_sfmlearner_release_tpu_torch.data import BatchLoader, PackedSequenceSet, device_augment
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
 from sc_sfmlearner_release_tpu_torch.models.convert import load_torch_state_dict
-from sc_sfmlearner_release_tpu_torch.ops import _build
+from sc_sfmlearner_release_tpu_torch.ops import KERNEL_WRAPPERS, _build
 from sc_sfmlearner_release_tpu_torch.ops.geometry import project_pixel_coords
 from sc_sfmlearner_release_tpu_torch.ops.ssim import (
     ssim_nchw, ssim_nchw_bwd, ssim_nchw_bwd_plain, ssim_nchw_plain,
@@ -632,8 +657,7 @@ def profile_phase(step, batch, label: str, steps: int = 3, tries: int = 3) -> No
 
 
 # Every kernel wrapper of the port, by the name the kernels line gives it.
-WRAPPERS = {"warp_sample": warp_sample, "warp_sample_bwd": warp_sample_bwd,
-            "ssim_nchw": ssim_nchw, "ssim_nchw_bwd": ssim_nchw_bwd}
+WRAPPERS = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
 
 
 def zero_launches() -> None:
@@ -784,8 +808,9 @@ def check_step_against_cpu(seed: int, rng: np.random.RandomState) -> dict:
     return worst
 
 
-def train_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
-    """This slice's main path: the bf16 train step at full width."""
+def train_phase(seed: int, rng: np.random.RandomState, profile: bool):
+    """Slice 3's path: the bf16 train step at full width. Returns its
+    launches and its device time per step."""
     disp_net, pose_net = make_nets(seed)
     batch = make_batch(rng)
     state = create_train_state(disp_net, pose_net, make_optimizer(disp_net, pose_net))
@@ -827,7 +852,7 @@ def train_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
     del step, state, disp_net, pose_net
     log("[train] fp32 step on the card against the CPU's plain step")
     check_step_against_cpu(seed + 2, rng)
-    return launches
+    return launches, times["train_step_bf16_device_ms"]
 
 
 # The trainer phase: the canonical KITTI run (scripts/train_resnet18_depth_256.sh)
@@ -839,6 +864,31 @@ TRAINER_DIR = os.path.join("build", "chip_smoke_trainer")
 AUG_TOL = 1e-5           # abs on normalized frames; intrinsics rel
 REMAT_LOSS_RTOL = 1e-5   # the remat step's forward is the plain step's
 REMAT_STATS_TOL = 1e-6   # abs, BatchNorm running statistics
+# The graphed train step against eager steps (fp32, TF32 off): the same
+# kernels and cuDNN algorithms, but the warp's d(depth) scatters with
+# atomics in an order that changes from run to run, so nothing is bitwise,
+# and Adam turns that noise into whole updates of either sign where a
+# gradient is near 0. Left to run on, two eager copies drift apart as
+# fast as the graph drifts from either (losses 1e-3 apart after 9 steps),
+# so each call is held against eager steps that start from the graph's
+# own state, and NOISE_COPIES more eager copies measure the same noise in
+# the same run: each bound below is the larger of its fixed value and
+# NOISE_FACTOR times the largest disagreement of a copy with the first.
+# At random init the geometry term is a small difference of nearly equal
+# depths, and two eager copies' geometry losses differ by up to rel 5e-4
+# within 3 steps: each term's error is taken relative to the total loss.
+GRAPH_K, GRAPH_CALLS = 3, 3
+NOISE_COPIES = 2
+GRAPH_LOSS_RTOL = 1e-4   # per step, relative to the step's total loss
+GRAPH_STATS_RTOL = 1e-4  # BatchNorm running statistics, max|err| over max|ref| per tensor
+# Parameters, as the JAX package's fused test bounds them
+# (tests/test_training.py:284-314), over each call's K steps: Adam moves
+# each element by about lr a step whatever its gradient (elementwise bound
+# 2 * lr * K); the disagreement's L2 norm under 2% of the update's.
+GRAPH_TRAJ_RTOL = 0.02
+NOISE_FACTOR = 4
+LR = 1e-4                # make_optimizer's default
+CLI_FUSED_K = 5          # the CLI's --fused-steps: 2 dispatches per 10-step epoch
 
 
 def write_packed_dataset(root: str, seed: int) -> int:
@@ -903,35 +953,104 @@ def read_rows(path: str):
         return list(csv.reader(f, delimiter="\t"))[1:]
 
 
+def check_cli_outputs(save: str, label: str) -> list:
+    """CLI_STEPS finite loss rows, and the reference-layout weight files
+    load into fresh networks; returns the rows."""
+    rows = read_rows(os.path.join(save, "progress_log_full.csv"))
+    losses = [float(r[0]) for r in rows]
+    if len(rows) != CLI_STEPS or not all(np.isfinite(float(v)) for r in rows for v in r):
+        raise AssertionError(f"{label} progress_log_full.csv: {len(rows)} rows {rows}")
+    log(f"[{label}] {len(rows)} finite loss rows, first {losses[0]:.5f} last {losses[-1]:.5f}")
+    for prefix, net in (("dispnet", DispNet(18)), ("exp_pose", PoseNet(18))):
+        for kind in ("checkpoint", "model_best"):
+            net.load_state_dict(load_torch_state_dict(
+                os.path.join(save, f"{prefix}_{kind}.pth.tar")))
+    log(f"[{label}] dispnet/exp_pose checkpoint and model_best files load into fresh networks")
+    return rows
+
+
+def check_resume(root: str, save: str, name: str, seed: int, label: str) -> None:
+    """A ``--resume`` epoch (without ``--fused-steps``) continues the step."""
+    resumed = run_cli(root, name, seed, "--epochs", "1", "--resume", save)
+    steps = [int(r[0]) for r in read_rows(os.path.join(resumed, train_cli.TIME_LOG))]
+    if steps != list(range(CLI_STEPS + 1, CLI_STEPS + CLI_EPOCH_SIZE + 1)):
+        raise AssertionError(f"{label}: resumed run's steps {steps}")
+    log(f"[{label}] --resume without --fused-steps: steps {steps[0]}..{steps[-1]}")
+
+
+def cli_times(save: str, prefix: str, skip: int) -> dict:
+    """Step and data wait per optimizer step from the time log, after the
+    first ``skip`` rows: the median, and the mean over the second epoch,
+    whose rows add up to its wall time from its first batch to its
+    metrics on the host."""
+    timing = read_rows(os.path.join(save, train_cli.TIME_LOG))
+    step_ms = [1e3 * float(r[2]) for r in timing]
+    wait_ms = [1e3 * float(r[1]) for r in timing]
+    return {f"{prefix}_first_step_ms": step_ms[0],
+            f"{prefix}_step_ms_median_after_{skip}": float(np.median(step_ms[skip:])),
+            f"{prefix}_step_ms_range_after_{skip}": [min(step_ms[skip:]), max(step_ms[skip:])],
+            f"{prefix}_step_ms_mean_epoch_2": float(np.mean(step_ms[CLI_EPOCH_SIZE:])),
+            f"{prefix}_data_wait_ms_median_after_{skip}": float(np.median(wait_ms[skip:])),
+            f"{prefix}_data_wait_ms_mean_after_{skip}": float(np.mean(wait_ms[skip:]))}
+
+
+def union_ms(intervals) -> float:
+    """Total length of the union of ``(start_us, end_us)`` intervals, ms."""
+    total, reach = 0.0, -np.inf
+    for start, end in sorted(intervals):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total / 1e3
+
+
+def trace_summary(trace_dir: str) -> dict:
+    """What a ``--profile-dir`` trace of one dispatch holds: the window, the
+    device's kernels (by the port's kernels' names), busy time and share,
+    and the host's launches."""
+    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
+    window_ms = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
+    busy_ms = union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    ours = {}
+    for e in kernels:
+        name = next((n for n in ("warp_sample_bwd", "warp_sample", "ssim_bwd_kernel",
+                                 "ssim_kernel") if n in e["name"]), None)
+        if name:
+            ours[name] = ours.get(name, 0) + 1
+    launch_calls = [e for e in runtime if "LaunchKernel" in e["name"]]
+    return {"window_ms": window_ms, "device_kernels": len(kernels), "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / window_ms if window_ms else None,
+            "port_kernels": ours, "host_kernel_launches": len(launch_calls),
+            "host_launch_ms": sum(e["dur"] for e in launch_calls) / 1e3,
+            "graph_launches": sum("GraphLaunch" in e["name"] for e in runtime),
+            "threads_with_cpu_ops": len({e["tid"] for e in events if e.get("cat") == "cpu_op"}),
+            "trace_mb": os.path.getsize(path) / 1e6}
+
+
 def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
-    """The train CLI from disk (this slice's main path): launches, logs,
-    checkpoints, the restored state and a resumed epoch."""
+    """The train CLI from disk: the eager run and, this slice's main path,
+    the ``--fused-steps`` run; launches, logs, checkpoints, the restored
+    state, resumed epochs, times and one profiled dispatch of each."""
     root = os.path.abspath(TRAINER_DIR)
     shutil.rmtree(root, ignore_errors=True)
     n_bytes = write_packed_dataset(root, seed)
     log(f"[cli] packed dataset {CLI_SCENES} at {W}x{H}: {n_bytes / 1e6:.1f} MB")
     val_samples = sum(n - N for name, n in CLI_SCENES if name.startswith("val"))
     val_batches = CLI_EPOCHS * min(CLI_VAL_BATCHES, -(-val_samples // B))
+    want = {k: CLI_STEPS * per_step[k] + val_batches * per_validation[k] for k in WRAPPERS}
 
     zero_launches()
     save = run_cli(root, "smoke", seed)
     launches = read_launches()
-    want = {k: CLI_STEPS * per_step[k] + val_batches * per_validation[k] for k in WRAPPERS}
     log(f"[cli] launches over {CLI_STEPS} train steps and {val_batches} validation batches: "
         f"{launches} (each train step launches {per_step})")
     if launches != want or min(per_step.values()) < 1:
         raise AssertionError(f"CLI launches {launches}, expected {want}")
-
-    rows = read_rows(os.path.join(save, "progress_log_full.csv"))
-    losses = [float(r[0]) for r in rows]
-    if len(rows) != CLI_STEPS or not all(np.isfinite(float(v)) for r in rows for v in r):
-        raise AssertionError(f"progress_log_full.csv: {len(rows)} rows {rows}")
-    log(f"[cli] {len(rows)} finite loss rows, first {losses[0]:.5f} last {losses[-1]:.5f}")
-    for prefix, net in (("dispnet", DispNet(18)), ("exp_pose", PoseNet(18))):
-        for kind in ("checkpoint", "model_best"):
-            net.load_state_dict(load_torch_state_dict(
-                os.path.join(save, f"{prefix}_{kind}.pth.tar")))
-    log("[cli] dispnet/exp_pose checkpoint and model_best files load into fresh networks")
+    check_cli_outputs(save, "cli")
 
     # The saved train state, restored on the card into fresh networks.
     disp_net, pose_net = make_nets(seed + 7)
@@ -947,12 +1066,7 @@ def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
     log(f"[cli] restored on the card: step {state.step}, Adam moments of {len(moments)} "
         "tensors equal to the saved ones")
     del state, disp_net, pose_net
-
-    resumed = run_cli(root, "smoke_resume", seed, "--epochs", "1", "--resume", save)
-    steps = [int(r[0]) for r in read_rows(os.path.join(resumed, train_cli.TIME_LOG))]
-    if steps != list(range(CLI_STEPS + 1, CLI_STEPS + CLI_EPOCH_SIZE + 1)):
-        raise AssertionError(f"resumed run's steps {steps}")
-    log(f"[cli] --resume: steps {steps[0]}..{steps[-1]}")
+    check_resume(root, save, "smoke_resume", seed, "cli")
 
     # The loader alone, as the CLI makes it (8 threads, pinned batches).
     loader = BatchLoader(PackedSequenceSet(os.path.join(root, "packed")), B, num_workers=8,
@@ -960,20 +1074,42 @@ def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
     t = time.perf_counter()
     n_loaded = sum(1 for _ in loader)
     loader_ms = (time.perf_counter() - t) * 1e3 / n_loaded
-
-    timing = read_rows(os.path.join(save, train_cli.TIME_LOG))
-    step_ms = [1e3 * float(r[2]) for r in timing]
-    wait_ms = [1e3 * float(r[1]) for r in timing]
-    times = {"cli_first_step_ms": step_ms[0],
-             "cli_step_ms_median_after_first": float(np.median(step_ms[1:])),
-             "cli_step_ms_range_after_first": [min(step_ms[1:]), max(step_ms[1:])],
-             "cli_data_wait_ms_median_after_first": float(np.median(wait_ms[1:])),
-             "cli_data_wait_ms_mean_after_first": float(np.mean(wait_ms[1:])),
-             "loader_alone_ms_per_batch": loader_ms}
+    times = {**cli_times(save, "cli", 1), "loader_alone_ms_per_batch": loader_ms}
     log(f"[cli] times (host clock; the CLI syncs only at --print-freq and the epoch's end): "
         f"{times}")
+
+    log(f"[cli-fused] the CLI with --fused-steps {CLI_FUSED_K}: one CUDA-graph replay of "
+        f"{CLI_FUSED_K} steps per dispatch after a warm-up and a capture")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    fused = run_cli(root, "smoke_fused", seed, "--fused-steps", str(CLI_FUSED_K))
+    fused_launches = read_launches()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[cli-fused] launches over {CLI_STEPS} train steps ({CLI_STEPS // CLI_FUSED_K} "
+        f"dispatches; replays counted) and {val_batches} validation batches: {fused_launches}")
+    if fused_launches != want:
+        raise AssertionError(f"fused CLI launches {fused_launches}, expected {want}")
+    check_cli_outputs(fused, "cli-fused")
+    check_resume(root, fused, "smoke_fused_resume", seed, "cli-fused")
+    fused_times = {**cli_times(fused, "cli_fused", 2 * CLI_FUSED_K),
+                   "cli_fused_peak_memory_gib": peak_gib}
+    log(f"[cli-fused] times per optimizer step (host clock; a dispatch's K rows share its "
+        f"time): {fused_times}")
+
+    # One profiled dispatch of each, in runs of their own: the eager run's
+    # second step, the fused run's third dispatch (after the warm-up and the
+    # capture, so in its second epoch).
+    for label, extra in (("eager", ("--epochs", "1", "--epoch-size", "3")),
+                         ("fused", ("--fused-steps", str(CLI_FUSED_K)))):
+        trace_dir = os.path.join(root, f"trace_{label}")
+        run_cli(root, f"smoke_profile_{label}", seed, "--profile-dir", trace_dir, *extra)
+        summary = trace_summary(trace_dir)
+        log(f"[profile-dir] one {label} CLI dispatch: {summary}")
+        if not summary["device_kernels"]:
+            log(f"[profile-dir] the {label} trace holds no device kernel records")
     shutil.rmtree(root, ignore_errors=True)
-    return launches
+    return {"train_cli": launches, "train_cli_fused": fused_launches}
 
 
 def uint8_snippet(rng: np.random.RandomState) -> dict:
@@ -1096,12 +1232,173 @@ def staging_phase(seed: int, rng: np.random.RandomState) -> dict:
     return times
 
 
+def stacked_uint8(rng: np.random.RandomState, k: int) -> dict:
+    """K uint8 snippets stacked on a leading axis, on the card."""
+    arrays = {"tgt": rng.randint(0, 256, (k, B, H, W, 3)).astype(np.uint8),
+              "refs": rng.randint(0, 256, (k, B, N, H, W, 3)).astype(np.uint8),
+              "intrinsics": np.broadcast_to(kitti_intrinsics(B), (k, B, 3, 3)).copy()}
+    return {name: torch.from_numpy(a).to(DEVICE) for name, a in arrays.items()}
+
+
+def compare_nets(nets, ref_nets, start) -> dict:
+    """``nets`` against ``ref_nets``, both trained from the parameters
+    ``start``: the parameters' max|diff| and trajectory rel L2 (the
+    disagreement's L2 norm over that of ``ref_nets``' update), the
+    BatchNorm statistics' worst max|err|/max|ref|, and how many times the
+    statistics moved."""
+    diff_sq = upd_sq = max_diff = stats = 0.0
+    params = [(p, q) for a, b in zip(nets, ref_nets) for p, q in zip(a.parameters(),
+                                                                      b.parameters())]
+    for (p, q), p0 in zip(params, start):
+        max_diff = max(max_diff, (p - q).abs().max().item())
+        diff_sq += (p - q).double().pow(2).sum().item()
+        upd_sq += (q - p0).double().pow(2).sum().item()
+    moved = set()
+    for a, b in zip(nets, ref_nets):
+        for (name, x), (_, y) in zip(a.named_buffers(), b.named_buffers()):
+            if name.endswith("num_batches_tracked"):
+                moved |= {int(x), int(y)}
+            else:
+                stats = max(stats, ((x - y).abs().max() / y.abs().max().clamp_min(1e-30)).item())
+    return {"max_diff": max_diff, "trajectory": (diff_sq / upd_sq) ** 0.5, "stats": stats,
+            "moved": sorted(moved)}
+
+
+def copy_train_state(src, dst) -> None:
+    """``src``'s (nets, optimizer) parameters, buffers and Adam state into
+    ``dst``'s tensors, in place (the graph keeps reading its own)."""
+    (src_nets, src_opt), (dst_nets, dst_opt) = src, dst
+    with torch.no_grad():
+        for a, b in zip(src_nets, dst_nets):
+            for x, y in zip([*a.parameters(), *a.buffers()], [*b.parameters(), *b.buffers()]):
+                y.copy_(x)
+        for g, h in zip(src_opt.param_groups, dst_opt.param_groups):
+            for p, q in zip(g["params"], h["params"]):
+                for name, v in src_opt.state[p].items():
+                    dst_opt.state[q][name].copy_(v)
+
+
+def graph_check(seed: int, rng: np.random.RandomState, remat: bool):
+    """fp32 K = GRAPH_K graphed steps through GRAPH_CALLS calls (warm-up,
+    capture and replay, replay), each call against K eager steps on a deep
+    copy of the same nets and optimizer put in the graph's state before the
+    call, with the same uint8 batches and augmentation draws, beside
+    NOISE_COPIES more eager copies that measure the eager step's own
+    run-to-run noise. Returns the graphed step, a batch for it, and the
+    failures."""
+    nets = make_nets(seed)
+    for net in nets:
+        net.to(DEVICE)
+    optimizer = make_optimizer(*nets, lr=LR, capturable=True)
+    copies = [copy.deepcopy((nets, optimizer)) for _ in range(1 + NOISE_COPIES)]
+    augment = device_augment.make_device_augment(device_augment.AugmentConfig())
+    kw = {"device": DEVICE, "precision": "fp32", "remat": remat, "augment_fn": augment,
+          "aug_seed": seed}
+    graphed = make_train_step(*nets, optimizer, fused_steps=GRAPH_K, **kw)
+    eager = [make_train_step(*pair, opt, **kw) for pair, opt in copies]
+    failures = []
+    for call in range(1, GRAPH_CALLS + 1):
+        label = f"graphed {'remat ' if remat else ''}call {call}"
+        if call > 1:  # the first call starts from the deep copies' own state
+            for c in copies:
+                copy_train_state((nets, optimizer), c)
+        start = [p.detach().clone() for net in nets for p in net.parameters()]
+        group = stacked_uint8(rng, GRAPH_K)
+        metrics = graphed(group)
+        got = [{k: metrics[k][i].item() for k in METRICS} for i in range(GRAPH_K)]
+        runs = [[] for _ in eager]  # runs[0] is the reference, the rest the noise
+        for i in range(GRAPH_K):
+            batch = {name: v[i] for name, v in group.items()}
+            for run, step in zip(runs, eager):
+                run.append({k: v.item() for k, v in step(batch).items()})
+        want = runs[0]
+        # Each term's error relative to the step's total loss.
+        err = lambda a, k: [abs(x[k] - w[k]) / abs(w["loss"]) for x, w in zip(a, want)]
+        for k in METRICS:
+            graph_err = err(got, k)
+            noise_err = [max(e) for e in zip(*(err(run, k) for run in runs[1:]))]
+            tol = max(GRAPH_LOSS_RTOL, NOISE_FACTOR * max(noise_err))
+            log(f"  {label} fp32 {k}, error per step over the eager total loss: "
+                f"{' '.join(f'{x:.1e}' for x in graph_err)}; largest of the eager copies "
+                f"{' '.join(f'{x:.1e}' for x in noise_err)} (tol {tol:.1e})")
+            if not (max(graph_err) <= tol and all(np.isfinite(g[k]) for g in got)):
+                failures.append(f"{label} {k}: error {max(graph_err):.2e} > {tol:.2e}")
+        log(f"  {label} losses: {[round(g['loss'], 6) for g in got]}")
+        graph = compare_nets(nets, copies[0][0], start)
+        noises = [compare_nets(c[0], copies[0][0], start) for c in copies[1:]]
+        noise = {k: max(n[k] for n in noises) for k in ("trajectory", "stats")}
+        bounds = {"max_diff": 2 * LR * GRAPH_K,
+                  "trajectory": max(GRAPH_TRAJ_RTOL, NOISE_FACTOR * noise["trajectory"]),
+                  "stats": max(GRAPH_STATS_RTOL, NOISE_FACTOR * noise["stats"])}
+        log(f"  {label}, its {GRAPH_K} steps: {graph}; eager copies to eager: {noises}; "
+            f"bounds {bounds}")
+        failures += [f"{label} {k} {graph[k]:.3e} > {b:.3e}" for k, b in bounds.items()
+                     if not graph[k] <= b]
+        if graph["moved"] != [call * GRAPH_K]:
+            failures.append(f"{label} BatchNorm statistics moved {graph['moved']} times")
+    return graphed, group, failures
+
+
+def graph_phase(seed: int, rng: np.random.RandomState, per_step: dict,
+                eager_device_ms: float) -> dict:
+    """The train step as CUDA-graph replays of K steps: fp32 against eager
+    steps (plain and ``remat``), launches over replays, and bf16 K =
+    CLI_FUSED_K's times and memory. Returns the replays' launches and the
+    checks' failures."""
+    graphed, group, failures = graph_check(seed + 11, rng, remat=False)
+    zero_launches()
+    for _ in range(2):
+        graphed(group)
+    launches = read_launches()
+    want = {k: 2 * GRAPH_K * per_step[k] for k in WRAPPERS}
+    log(f"[graph] launches over 2 replays of {GRAPH_K} steps: {launches} (expected {want})")
+    if launches != want:
+        failures.append(f"graphed launches {launches}, expected {want}")
+    del graphed, group
+    failures += graph_check(seed + 12, rng, remat=True)[2]
+    torch.cuda.empty_cache()
+
+    nets = make_nets(seed + 13)
+    for net in nets:
+        net.to(DEVICE)
+    step = make_train_step(*nets, make_optimizer(*nets, lr=LR, capturable=True), device=DEVICE,
+                           augment_fn=device_augment.make_device_augment(
+                               device_augment.AugmentConfig()),
+                           aug_seed=seed, fused_steps=CLI_FUSED_K)
+    group = stacked_uint8(rng, CLI_FUSED_K)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls = []
+    for _ in range(2):  # the warm-up, then the capture and its first replay
+        t = time.perf_counter()
+        losses = step(group)["loss"].tolist()
+        calls.append((time.perf_counter() - t) * 1e3)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"bf16 graphed losses {losses}")
+    times = {"warmup_call_ms": calls[0], "capture_call_ms": calls[1],
+             "graph_device_ms_per_step": cuda_ms(lambda: step(group), 4, warmup=1)
+             / CLI_FUSED_K,
+             "graph_call_host_ms_per_step": host_ms(lambda: step(group), 5) / CLI_FUSED_K,
+             "eager_step_device_ms": eager_device_ms,
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[graph] bf16 K={CLI_FUSED_K} (device augmentation on uint8): {times} "
+        "(device ms: CUDA events around back-to-back calls, each a replay and its input "
+        "copies; host ms: host clock around a call that ends in synchronize; the eager "
+        "step's device time is the train phase's graph of one step, without augmentation)")
+    del step, nets
+    torch.cuda.empty_cache()
+    return launches, failures
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", action="store_true",
                    help="also print the eval and train steps' device time by kernel "
                         "(torch.profiler)")
+    p.add_argument("--graph-seeds", type=int, default=0,
+                   help="also repeat the fp32 graph-against-eager check, without and with "
+                        "remat, from this many more seeds")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1117,20 +1414,31 @@ def main(argv=None) -> int:
                ssim_bwd_phase(rng)]
     del inputs
     by_path = slice_phase(args.seed, rng, args.profile)
-    by_path["train_step"] = train_phase(args.seed, rng, args.profile)
+    by_path["train_step"], step_device_ms = train_phase(args.seed, rng, args.profile)
     log("[augment] the device augmentation on the card against the CPU")
     augment_phase(args.seed, rng)
     log("[remat] an fp32 remat step on the card against a plain step")
     remat_phase(args.seed, rng)
-    log("[cli] the train CLI from a packed dataset on disk")
-    by_path["train_cli"] = cli_phase(args.seed, by_path["train_step"],
-                                     by_path["validation_step"])
+    log("[graph] the train step as CUDA-graph replays of K steps against eager steps")
+    # The graph checks' failures fail the run after the phases that follow.
+    by_path["train_step_graphed"], failures = graph_phase(args.seed, rng, by_path["train_step"],
+                                                          step_device_ms)
+    for s in range(args.graph_seeds):
+        for remat in (False, True):
+            found = graph_check(args.seed + 100 + s, rng, remat)[2]
+            log(f"[graph] seed {args.seed + 100 + s}, remat {remat}: failures {found}")
+            failures += found
+        torch.cuda.empty_cache()
+    log("[cli] the train CLI from a packed dataset on disk, eager and with --fused-steps")
+    by_path.update(cli_phase(args.seed, by_path["train_step"], by_path["validation_step"]))
     staging_phase(args.seed, rng)
     for k in kernels:
-        k["launches"] = by_path["train_cli"][k["name"]]
+        k["launches"] = by_path["train_cli_fused"][k["name"]]
         k["launches_per_train_step"] = by_path["train_step"][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    if failures:
+        raise AssertionError(f"graph checks failed: {failures}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

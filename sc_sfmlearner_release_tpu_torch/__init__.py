@@ -16,8 +16,9 @@ version on a CPU tensor.
 
 Entry points: the train CLI (``python -m sc_sfmlearner_release_tpu_torch.train``,
 ``train.py``) and, in ``training/``, ``make_train_step`` (forward in train
-mode, 3-term loss, backward, Adam from ``make_optimizer``; ``remat`` and a
-device ``augment_fn``), ``make_eval_step`` (photometric validation),
+mode, 3-term loss, backward, Adam from ``make_optimizer``; ``remat``, a
+device ``augment_fn``, and ``fused_steps``: K steps per call, one CUDA-graph
+replay on the card), ``make_eval_step`` (photometric validation),
 ``make_eval_depth_step`` (ground-truth depth metrics), ``make_inference_fn``
 and the checkpoints (``training/checkpoint.py``). Host data (``data/``: the
 dataset crawlers, the packed uint8 format, the batch loader, the host

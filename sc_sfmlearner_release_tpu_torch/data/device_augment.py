@@ -36,7 +36,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -103,19 +103,30 @@ def _affine_coords(draws: Batch, h: int, w: int):
     return in_x, in_y, sx_eff, sy_eff, ox, oy
 
 
-def _affine_on(device: torch.device, draws: Batch, h: int, w: int):
+def _affine_packed(draws: Batch, h: int, w: int) -> torch.Tensor:
     """:func:`_affine_coords` where the draws lie (the CPU, from the step's
-    generator), moved to ``device`` in one copy, with the flip. Resolving
-    them on the CPU keeps the positions the same on every device: CUDA
-    divides a tensor by a Python number as a multiplication by its
-    reciprocal, which moves a position by an ulp (and a frame by up to
-    5e-4 at 832 columns)."""
+    generator), packed into one ``[B, W + H + 5]`` tensor (``in_x``,
+    ``in_y``, then per sample ``sx_eff, sy_eff, ox, oy, flip``) that moves
+    to the device in one copy. Resolving them on the CPU keeps the
+    positions the same on every device: CUDA divides a tensor by a Python
+    number as a multiplication by its reciprocal, which moves a position by
+    an ulp (and a frame by up to 5e-4 at 832 columns)."""
     in_x, in_y, sx_eff, sy_eff, ox, oy = _affine_coords(draws, h, w)
     per_sample = torch.stack([sx_eff, sy_eff, ox, oy, draws["flip"].float()], 1)
-    packed = torch.cat([in_x, in_y, per_sample], 1).to(device, non_blocking=True)
+    return torch.cat([in_x, in_y, per_sample], 1)
+
+
+def _unpack_affine(packed: torch.Tensor, h: int, w: int):
+    """Inverse of :func:`_affine_packed`, on the device it lies on."""
     in_x, in_y, per_sample = packed.split([w, h, 5], 1)
     sx_eff, sy_eff, ox, oy, flip = per_sample.unbind(1)
     return in_x, in_y, sx_eff, sy_eff, ox, oy, flip > 0.5
+
+
+def _affine_on(device: torch.device, draws: Batch, h: int, w: int):
+    """The affine map of ``draws``, made on the CPU and moved to ``device``."""
+    packed = _affine_packed(draws, h, w).to(device, non_blocking=True)
+    return _unpack_affine(packed, h, w)
 
 
 def _resample_axis(frames: torch.Tensor, pos: torch.Tensor, dim: int) -> torch.Tensor:
@@ -163,8 +174,8 @@ def augment_with_draws(batch: Batch, draws: Batch, cfg: AugmentConfig) -> Batch:
 
 def _apply_affine(batch: Batch, affine, cfg: AugmentConfig) -> Batch:
     """The device's share of :func:`augment_with_draws`: resample,
-    normalize and update the intrinsics by the map :func:`_affine_on`
-    made."""
+    normalize and update the intrinsics by the map :func:`_unpack_affine`
+    unpacked."""
     tgt, refs, intrinsics = batch["tgt"], batch["refs"], batch["intrinsics"]
     w = tgt.shape[2]
     in_x, in_y, sx_eff, sy_eff, ox, oy, flip = affine
@@ -192,17 +203,41 @@ def _to_unit_float(batch: Batch) -> Batch:
     return out
 
 
-def make_device_augment(cfg: AugmentConfig) -> Callable[[torch.Generator, Batch], Batch]:
+class DeviceAugment:
     """``augment(generator, batch) -> batch`` for raw train batches, float
     [0, 1] or uint8 [0, 255] straight from a packed loader; the train step
-    (``make_train_step(augment_fn=...)``) passes the step's generator."""
+    (``make_train_step(augment_fn=...)``) passes the step's generator.
 
-    def augment(generator: torch.Generator, batch: Batch) -> Batch:
+    Its two halves serve a step captured in a CUDA graph, which cannot copy
+    from pageable memory: :meth:`host_map` makes one step's affine map on
+    the CPU, :meth:`apply_map` is the rest, on the device, given that map
+    on the batch's device. ``apply_map(batch, host_map(g, ...))`` is
+    ``augment(g, batch)``."""
+
+    def __init__(self, cfg: AugmentConfig):
+        self.cfg = cfg
+
+    def __call__(self, generator: torch.Generator, batch: Batch) -> Batch:
         batch = _to_unit_float(batch)
-        draws = sample_draws(generator, batch["tgt"].shape[0], cfg)
-        return augment_with_draws(batch, draws, cfg)
+        draws = sample_draws(generator, batch["tgt"].shape[0], self.cfg)
+        return augment_with_draws(batch, draws, self.cfg)
 
-    return augment
+    def host_map(self, generator: torch.Generator, batch_size: int, h: int,
+                 w: int) -> torch.Tensor:
+        """The draws of ``generator`` resolved into the packed affine map,
+        ``[batch_size, w + h + 5]`` fp32 on the CPU."""
+        return _affine_packed(sample_draws(generator, batch_size, self.cfg), h, w)
+
+    def apply_map(self, batch: Batch, packed: torch.Tensor) -> Batch:
+        """Convert, resample, normalize and update the intrinsics of
+        ``batch`` by :meth:`host_map`'s map, moved to the batch's device."""
+        _, h, w, _ = batch["tgt"].shape
+        return _apply_affine(_to_unit_float(batch), _unpack_affine(packed, h, w), self.cfg)
+
+
+def make_device_augment(cfg: AugmentConfig) -> DeviceAugment:
+    """The device augmentation of ``cfg`` (:class:`DeviceAugment`)."""
+    return DeviceAugment(cfg)
 
 
 def normalize_batch(batch: Batch, mean: Tuple[float, float, float] = IMAGENET_MEAN,

@@ -11,13 +11,28 @@ exact ``--resume``. It trains on one CUDA card (``--device cuda``, the
 default; it raises without one) or on the CPU (``--device cpu``).
 
 Not here: ``--sampler`` and ``--spatial-shards`` (the TPU band sampler and
-its mesh), ``--distributed`` (multi-GPU is not ported), ``--fused-steps``
-and ``--profile-dir``; argparse rejects them.
+its mesh) and ``--distributed`` (multi-GPU is not ported); argparse rejects
+them.
 
-Each step's host time and data wait go to ``progress_log_time.csv`` in the
-experiment directory (seconds; metrics stay on the device during an epoch,
-so a step's time is its share of the epoch's wall time, not one kernel
-sequence's).
+``--fused-steps K`` runs K optimizer steps per dispatch
+(``make_train_step(fused_steps=K)``): on the card one CUDA-graph replay of
+K steps (the first dispatch runs them eagerly, the second captures the
+graph), on the CPU K eager steps. K is clamped to the epoch size, K batches
+staged on the device are stacked there into one, and a trailing partial
+group of an epoch is dropped. Checkpoints and progress lines come where a
+dispatch crosses a multiple of ``--checkpoint-freq`` or ``--print-freq``
+(the line shows the last of its K steps); the logs keep one row per
+optimizer step. ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
+exactly one dispatch into DIR: the first after the warm-up (with
+``--fused-steps``, after the warm-up and the capture).
+
+Each optimizer step's time and data wait go to ``progress_log_time.csv`` in
+the experiment directory (``step``, ``data_wait_s``, ``step_s``; seconds):
+each of a dispatch's K rows holds the dispatch's wait for its batches / K
+and its host time / K, the wait included. Metrics stay on the device during
+an epoch, so the card may run behind the host: the last dispatch of an
+epoch also counts the wait for the epoch's metrics, and an epoch's rows add
+up to its wall time from its first batch to its metrics on the host.
 
 One divergence from the JAX trainer: with ``--packed`` and without
 ``--with-gt`` the validation snippets come from the packed directory's
@@ -55,7 +70,8 @@ from .training import (
     make_inference_fn, make_optimizer, make_train_step,
 )
 from .training.checkpoint import restore_train_state, save_checkpoint
-from .utils import AverageMeter, make_logger, tensor2array
+from .training.step import METRIC_KEYS
+from .utils import AverageMeter, enable_nan_debugging, make_logger, tensor2array, trace
 
 TIME_LOG = "progress_log_time.csv"
 
@@ -131,6 +147,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="terminal UI: 'bars' = the reference's fixed-"
                    "position epoch/train/valid bars (logger.py), 'line' = "
                    "plain single-line updates; 'auto' picks bars on a TTY")
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace (host and card) of one "
+                   "train dispatch after the warm-up into this directory "
+                   "(view with TensorBoard or Perfetto)")
     p.add_argument("--debug-nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly (the reference's "
                    "anomaly detection, opt-in)")
@@ -139,6 +159,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "heads, geometry and losses always fp32)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="train on the CUDA card (raises without one) or on the CPU")
+    p.add_argument("--fused-steps", type=int, default=1,
+                   help="run N optimizer steps per device dispatch "
+                   "(one CUDA-graph replay of N steps over N stacked batches); "
+                   "hides host dispatch latency. Per-step metrics are still "
+                   "logged individually")
     p.add_argument("--remat", action="store_true",
                    help="recompute activations in the backward pass "
                    "(torch.utils.checkpoint): slower per step, less memory")
@@ -269,6 +294,27 @@ def _networks(args):
     return disp_net, pose_net
 
 
+def _grouped(batches, k: int):
+    """Group ``k`` consecutive staged ``(batch, n_valid)`` pairs into one
+    batch stacked on a new leading axis, on the device (the JAX trainer's
+    ``_stack_fused``); ``k = 1`` passes them through. A trailing partial
+    group is dropped (training loaders drop the last batch anyway)."""
+    if k == 1:
+        yield from batches
+        return
+    group = []
+    for batch, _ in batches:
+        group.append(batch)
+        if len(group) == k:
+            yield {key: torch.stack([g[key] for g in group]) for key in group[0]}, None
+            group = []
+
+
+def _synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _write_rows(path: str, rows, mode: str = "a") -> None:
     with open(path, mode, newline="") as f:
         csv.writer(f, delimiter="\t").writerows(rows)
@@ -282,7 +328,7 @@ def main(argv=None) -> int:
     except RuntimeError as exc:
         raise SystemExit(f"--device {args.device}: {exc}") from exc
     if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
+        enable_nan_debugging()
 
     timestamp = datetime.datetime.now().strftime("%m-%d-%H:%M")
     save_path = os.path.join("checkpoints", args.name, timestamp)
@@ -314,18 +360,29 @@ def main(argv=None) -> int:
                              num_workers=args.workers, drop_last=False, seed=args.seed,
                              pin_memory=pin)
     epoch_size = args.epoch_size or len(train_loader)
+    fused = max(args.fused_steps, 1)
+    if fused > 1 and fused > epoch_size:
+        # Trailing partial groups are dropped: a group larger than the
+        # epoch would train zero steps per epoch.
+        print(f"=> clamping --fused-steps {fused} to epoch size {epoch_size}")
+        fused = max(1, epoch_size)
 
     # ---- models / state --------------------------------------------------
     disp_net, pose_net = _networks(args)
     disp_net.to(device)
     pose_net.to(device)
+    # A CUDA graph of the step needs Adam's step count on the card.
     optimizer = make_optimizer(disp_net, pose_net, args.lr, args.momentum, args.beta,
-                               args.weight_decay)
+                               args.weight_decay,
+                               capturable=fused > 1 and device.type == "cuda")
     state = create_train_state(disp_net, pose_net, optimizer, seed=args.seed)
     if args.resume:
         print(f"=> resuming full train state from {args.resume}")
         restore_train_state(args.resume, state)
         print(f"=> resumed at step {state.step}")
+    # Adam's count, read once (a capturable Adam keeps it on the card):
+    # the loop counts steps on the host from here.
+    start_step = state.step
 
     cfg = LossConfig(
         photo_weight=args.photo_loss_weight,
@@ -340,7 +397,7 @@ def main(argv=None) -> int:
     augment_fn = make_device_augment(AugmentConfig()) if args.device_augment else None
     train_step = make_train_step(disp_net, pose_net, optimizer, cfg, device=device,
                                  precision=args.precision, remat=args.remat,
-                                 augment_fn=augment_fn, aug_seed=args.seed)
+                                 augment_fn=augment_fn, aug_seed=args.seed, fused_steps=fused)
     eval_step = make_eval_step(disp_net, pose_net, cfg, device=device,
                                precision=args.precision)
     eval_depth_step = make_eval_depth_step(disp_net, args.dataset, device=device,
@@ -357,6 +414,9 @@ def main(argv=None) -> int:
     logger = make_logger(args.epochs, epoch_size, len(val_loader), style=args.log_style)
     best_error = -1.0
     n_iter = 0
+    # The one profiled dispatch comes after the warm-up, and the capture.
+    profile_from = 2 * fused if fused > 1 else 1
+    profile_done = False
 
     for epoch in range(args.epochs):
         logger.start_epoch(epoch)
@@ -366,23 +426,31 @@ def main(argv=None) -> int:
         losses = AverageMeter(precision=4)
         # metrics stay on the device; one sync at the epoch's end
         pending = []
-        times = []
+        dispatches = []  # [first optimizer step, data wait, host time]
         t_data, t_step = AverageMeter(), AverageMeter()
         end = time.time()
         epoch_steps = 0
-        for batch, _ in device_prefetch(train_loader, device):
+        for batch, _ in _grouped(device_prefetch(train_loader, device), fused):
             if epoch_steps >= epoch_size:
                 break
             waited = time.time() - end
             t_data.update(waited)
-            metrics = train_step(batch)
-            n_iter += 1
-            epoch_steps += 1
+            profile = bool(args.profile_dir) and not profile_done and n_iter >= profile_from
+            # The trace spans exactly this dispatch, until the card has run it.
+            with trace(args.profile_dir if profile else None):
+                metrics = train_step(batch)
+                if profile:
+                    _synchronize(device)
+            profile_done = profile_done or profile
+            prev_iter, n_iter = n_iter, n_iter + fused
+            epoch_steps += fused
             pending.append(metrics)
-            if args.checkpoint_freq and n_iter % args.checkpoint_freq == 0:
+            if args.checkpoint_freq and (
+                    n_iter // args.checkpoint_freq > prev_iter // args.checkpoint_freq):
                 save_checkpoint(save_path, state, is_best=False, epoch=epoch)
-            if (n_iter - 1) % args.print_freq == 0:
-                m = {k: float(v) for k, v in metrics.items()}
+            # did [prev_iter, n_iter) contain a multiple of print_freq?
+            if (n_iter - 1) // args.print_freq > (prev_iter - 1) // args.print_freq:
+                m = {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
                 losses.update(m["loss"], args.batch_size)
                 if tb_writer is not None:
                     tb_writer.add_scalar("photometric_error", m["photo_loss"], n_iter)
@@ -394,15 +462,19 @@ def main(argv=None) -> int:
                                     f"Time {t_step} Data {t_data} Loss {losses}")
             now = time.time()
             t_step.update(now - end)
-            times.append([state.step, waited, now - end])
+            dispatches.append([start_step + prev_iter + 1, waited, now - end])
             end = now
         logger.train_update(min(epoch_steps, epoch_size), "")
 
+        # one sync for the whole epoch's metrics; fused metrics carry a
+        # leading [K] axis: one CSV row per optimizer step either way
         full_rows = []
         if pending:
-            keys = ("loss", "photo_loss", "smooth_loss", "geometry_loss")
-            full_rows = torch.stack([torch.stack([m[k] for k in keys]) for m in pending]
-                                    ).double().cpu().tolist()
+            full_rows = torch.cat([torch.stack([m[k].reshape(-1) for k in METRIC_KEYS], 1)
+                                   for m in pending]).double().cpu().tolist()
+            dispatches[-1][2] += time.time() - end  # the wait for those metrics
+        times = [[first + j, waited / fused, secs / fused]
+                 for first, waited, secs in dispatches for j in range(fused)]
         train_loss = float(np.mean([r[0] for r in full_rows])) if full_rows else 0.0
         logger.write(f" * Avg Loss : {train_loss:.3f}")
         _write_rows(os.path.join(save_path, args.log_full), full_rows)

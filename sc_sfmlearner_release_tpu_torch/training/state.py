@@ -58,17 +58,21 @@ class TrainState:
 
 def make_optimizer(
     disp_net: nn.Module, pose_net: nn.Module, lr: float = 1e-4, beta1: float = 0.9,
-    beta2: float = 0.999, weight_decay: float = 0.0,
+    beta2: float = 0.999, weight_decay: float = 0.0, capturable: bool = False,
 ) -> torch.optim.Adam:
     """One Adam over both networks' parameters with one learning rate.
 
     ``weight_decay`` is L2 added to the gradient before the Adam scaling
     (torch's coupled form), which is ``optax.add_decayed_weights`` before
-    ``optax.adam`` in the JAX package; eps 1e-8 as optax's.
+    ``optax.adam`` in the JAX package; eps 1e-8 as optax's. ``capturable``
+    keeps Adam's step count on the card, which a CUDA-graph capture of the
+    step needs (``make_train_step(fused_steps=K)`` on CUDA); torch refuses
+    it for parameters on the CPU, and reading the count then waits for the
+    card (:func:`optimizer_step`).
     """
     params = itertools.chain(disp_net.parameters(), pose_net.parameters())
     return torch.optim.Adam(params, lr=lr, betas=(beta1, beta2), eps=1e-8,
-                            weight_decay=weight_decay)
+                            weight_decay=weight_decay, capturable=capturable)
 
 
 def create_train_state(

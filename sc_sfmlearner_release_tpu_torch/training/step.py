@@ -33,11 +33,14 @@ from torch.utils.checkpoint import checkpoint
 
 from .. import disable_tf32, resolve_device
 from ..data.device_augment import step_generator
+from ..ops import KERNEL_WRAPPERS
 from ..ops.losses import photo_and_geometry_loss, resize_nearest, smooth_loss
 from ..ops.metrics import compute_depth_errors
 from .state import optimizer_step
 
 PRECISIONS = ("bf16", "fp32")
+METRIC_KEYS = ("loss", "photo_loss", "smooth_loss", "geometry_loss")
+SNIPPET_KEYS = ("tgt", "refs", "intrinsics")
 Batch = Dict[str, torch.Tensor]
 
 
@@ -124,7 +127,10 @@ def _call(fn, *args):
 
 
 def _remat(fn, *args):
-    return checkpoint(fn, *args, use_reentrant=False)
+    # The step draws no random numbers on the device, so there is no RNG
+    # state to restore for the recomputation (saving it is refused while a
+    # CUDA graph is being captured).
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def total_loss(
@@ -161,7 +167,7 @@ def _to_device(x, device: torch.device) -> torch.Tensor:
 
 
 def _snippet(batch, device: torch.device) -> Batch:
-    return {k: _to_device(batch[k], device).float() for k in ("tgt", "refs", "intrinsics")}
+    return {k: _to_device(batch[k], device).float() for k in SNIPPET_KEYS}
 
 
 def make_train_step(
@@ -186,32 +192,40 @@ def make_train_step(
     being the optimizer's count before the update: it is read from the
     optimizer at the first call, and again whenever the optimizer's state
     has been replaced (``load_state_dict``, as a restore does), and counted
-    on the host in between, so no step waits for the card. ``fused_steps``
-    > 1 (K steps per dispatch) is not ported yet.
+    on the host in between, so no step waits for the card.
+
+    ``fused_steps=K > 1`` returns a step that takes K batches stacked on a
+    new leading axis (``tgt [K, B, H, W, 3]``, ``refs [K, B, N, H, W, 3]``,
+    ``intrinsics [K, B, 3, 3]``) and runs K optimizer steps per call, the
+    same steps as K calls of the unfused step (step ``s + k`` draws its
+    augmentation from the generator of (``aug_seed``, ``s + k``)); its
+    metrics have a leading ``[K]`` axis. On the CPU it runs them eagerly.
+    On CUDA the K steps are one CUDA graph (:class:`_GraphedSteps`), which
+    needs ``make_optimizer(..., capturable=True)`` and, with
+    ``augment_fn``, a :class:`~..data.device_augment.DeviceAugment`.
 
     Moves both networks to ``device``. Returns ``train_step(batch) ->
     metrics`` (detached 0-d tensors: ``loss``, ``photo_loss``,
     ``smooth_loss``, ``geometry_loss``).
     """
-    if fused_steps > 1:
-        raise NotImplementedError("fused_steps > 1 is not ported yet")
+    if fused_steps < 1:
+        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
     device = resolve_device(device)
     _check_precision(precision)
+    fused_on_card = fused_steps > 1 and device.type == "cuda"
+    if fused_on_card:
+        if not all(g.get("capturable") for g in optimizer.param_groups):
+            raise ValueError("fused_steps > 1 on CUDA captures the optimizer's update in a "
+                             "CUDA graph: build it with make_optimizer(..., capturable=True)")
+        if augment_fn is not None and not hasattr(augment_fn, "host_map"):
+            raise TypeError("fused_steps > 1 on CUDA needs an augment_fn with host_map and "
+                            "apply_map (data.device_augment.make_device_augment)")
     disable_tf32()
     disp_net.to(device)
     pose_net.to(device)
-    step, counted_state = None, None
 
-    def train_step(batch) -> Dict[str, torch.Tensor]:
-        nonlocal step, counted_state
-        # Optimizer.load_state_dict installs a new ``state`` mapping.
-        if optimizer.state is not counted_state:
-            step, counted_state = optimizer_step(optimizer), optimizer.state
-        if augment_fn is None:
-            snippet = _snippet(batch, device)
-        else:
-            raw = {k: _to_device(batch[k], device) for k in ("tgt", "refs", "intrinsics")}
-            snippet = augment_fn(step_generator(aug_seed, step), raw)
+    def update(snippet: Batch) -> Dict[str, torch.Tensor]:
+        """One optimizer step on a snippet on the device."""
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = total_loss(disp_net, pose_net, snippet, cfg, precision=precision,
                                    train=True, remat=remat)
@@ -224,10 +238,160 @@ def make_train_step(
                 for b, saved in zip(bn_buffers, moved_once):
                     b.copy_(saved)
         optimizer.step()
-        step += 1
         return {k: v.detach() for k, v in metrics.items()}
 
-    return train_step
+    if fused_on_card:
+        return _GraphedSteps(fused_steps, device, optimizer, update, augment_fn, aug_seed)
+
+    step, counted_state = None, None
+
+    def train_step(batch) -> Dict[str, torch.Tensor]:
+        nonlocal step, counted_state
+        # Optimizer.load_state_dict installs a new ``state`` mapping.
+        if optimizer.state is not counted_state:
+            step, counted_state = optimizer_step(optimizer), optimizer.state
+        if augment_fn is None:
+            snippet = _snippet(batch, device)
+        else:
+            raw = {k: _to_device(batch[k], device) for k in SNIPPET_KEYS}
+            snippet = augment_fn(step_generator(aug_seed, step), raw)
+        metrics = update(snippet)
+        step += 1
+        return metrics
+
+    if fused_steps == 1:
+        return train_step
+
+    def fused_step(batches) -> Dict[str, torch.Tensor]:
+        _check_stacked(batches, fused_steps)
+        per_step = [train_step({k: batches[k][i] for k in SNIPPET_KEYS})
+                    for i in range(fused_steps)]
+        return {k: torch.stack([m[k] for m in per_step]) for k in METRIC_KEYS}
+
+    return fused_step
+
+
+def _check_stacked(batches, k: int) -> None:
+    for key in SNIPPET_KEYS:
+        if batches[key].shape[0] != k:
+            raise ValueError(f"fused_steps={k}: {key} has shape {tuple(batches[key].shape)}, "
+                             f"expected {k} batches stacked on a leading axis")
+
+
+class _GraphedSteps:
+    """K train steps per call on CUDA, as one CUDA-graph replay.
+
+    The first call runs its K steps eagerly on a side stream (they are real
+    steps, with their own batches and draws): that initializes Adam's state,
+    cuDNN's plans and the allocator's pools outside any capture. The second
+    call captures the K steps into one graph, then replays it; later calls
+    only replay. The graph reads static device inputs (the stacked batch
+    and, with ``augment_fn``, the K steps' affine maps) and writes a static
+    ``[K, 4]`` metrics buffer; each call copies its batch into the inputs
+    on the current stream, replays, and returns a clone of the metrics.
+
+    The maps are made on the host (``augment_fn.host_map``: the draws and
+    positions stay on the CPU, which keeps them bit-equal across devices),
+    written into one of two pinned buffers and copied to the device on the
+    current stream just before the replay; the graph applies them
+    (``augment_fn.apply_map``). Before a call writes a pinned buffer it
+    waits for the replay that last read it, two calls back: that also keeps
+    the host at most two calls ahead of the card.
+
+    A capture counts each kernel wrapper's launches once although it
+    launches nothing: the counts are put back after the capture, and each
+    replay adds the capture's increase. When the optimizer's state has
+    been replaced (``load_state_dict`` installs new moment tensors, which
+    the old graph would not update), the step count is read again, the
+    graph is dropped, and the next two calls warm up and capture anew. A
+    failed capture or replay raises; nothing falls back to the eager step.
+    """
+
+    def __init__(self, k: int, device: torch.device, optimizer: torch.optim.Optimizer,
+                 update: Callable[[Batch], Dict[str, torch.Tensor]], augment_fn, aug_seed: int):
+        self.k, self.device, self.optimizer = k, device, optimizer
+        self.update, self.augment_fn, self.aug_seed = update, augment_fn, aug_seed
+        self.step = self.counted_state = None
+        self.graph, self.warm = None, False
+        self.inputs = self.maps = self.metrics = None
+        self.pinned, self.done, self.turn = [], [None, None], 0
+        self.launches = None
+
+    def __call__(self, batches) -> Dict[str, torch.Tensor]:
+        if self.optimizer.state is not self.counted_state:
+            self.step, self.counted_state = optimizer_step(self.optimizer), self.optimizer.state
+            self.graph, self.warm = None, False
+        _check_stacked(batches, self.k)
+        if self.done[self.turn] is not None:
+            self.done[self.turn].synchronize()
+        self._stage(batches)
+        stream = torch.cuda.current_stream(self.device)
+        if not self.warm:
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                self._steps()
+            stream.wait_stream(side)
+            self.warm = True
+        else:
+            if self.graph is None:
+                self._capture()
+            self.graph.replay()
+            for fn, n in zip(KERNEL_WRAPPERS, self.launches):
+                fn.launches += n
+        done = torch.cuda.Event()
+        done.record(stream)
+        self.done[self.turn] = done
+        self.turn ^= 1
+        self.step += self.k
+        metrics = self.metrics.clone()
+        return {key: metrics[:, i] for i, key in enumerate(METRIC_KEYS)}
+
+    def _stage(self, batches) -> None:
+        """The batch into the static inputs and, with ``augment_fn``, the K
+        steps' maps into the static map buffer, on the current stream."""
+        raw = {k: _to_device(batches[k], self.device) for k in SNIPPET_KEYS}
+        if self.inputs is None:
+            self.inputs = {k: torch.empty_like(v) for k, v in raw.items()}
+            self.metrics = torch.zeros((self.k, len(METRIC_KEYS)), device=self.device)
+            if self.augment_fn is not None:
+                _, b, h, w, _ = raw["tgt"].shape
+                self.maps = torch.empty((self.k, b, w + h + 5), device=self.device)
+                self.pinned = [torch.empty(self.maps.shape, pin_memory=True) for _ in range(2)]
+        for k, v in raw.items():
+            if v.shape != self.inputs[k].shape:
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, but the graph was made for "
+                                 f"{tuple(self.inputs[k].shape)}")
+            self.inputs[k].copy_(v)
+        if self.augment_fn is not None:
+            pinned = self.pinned[self.turn]
+            _, b, h, w, _ = raw["tgt"].shape
+            for i in range(self.k):
+                pinned[i] = self.augment_fn.host_map(
+                    step_generator(self.aug_seed, self.step + i), b, h, w)
+            self.maps.copy_(pinned, non_blocking=True)
+
+    def _steps(self) -> None:
+        """The K steps on the static buffers: what the graph captures."""
+        for i in range(self.k):
+            raw = {k: v[i] for k, v in self.inputs.items()}
+            if self.augment_fn is None:
+                snippet = {k: v.float() for k, v in raw.items()}
+            else:
+                snippet = self.augment_fn.apply_map(raw, self.maps[i])
+            metrics = self.update(snippet)
+            self.metrics[i].copy_(torch.stack([metrics[k] for k in METRIC_KEYS]))
+
+    def _capture(self) -> None:
+        before = [fn.launches for fn in KERNEL_WRAPPERS]
+        graph = torch.cuda.CUDAGraph()
+        # Thread-local: the loader's threads pin host memory meanwhile.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self._steps()
+        self.launches = [fn.launches - n for fn, n in zip(KERNEL_WRAPPERS, before)]
+        for fn, n in zip(KERNEL_WRAPPERS, before):
+            fn.launches = n
+        self.graph = graph
 
 
 def make_eval_step(

@@ -100,29 +100,44 @@ def _leaves(tree):
 
 
 @functools.cache
-def _jax_run():
-    """JAX's make_train_step on the batch, and the gradient of its loss:
-    (metrics, grads, new batch_stats, new params, old params), numpy trees."""
-    jdisp, jpose, dv, pv = _variables()
+def _jax_program():
+    """(tx, run): JAX's make_train_step and, beside it, the gradient of its
+    ``_total_loss``, in one jitted ``run(state, batch) -> (metrics, grads,
+    new state)``."""
+    jdisp, jpose, _, _ = _variables()
     tx = jstate.make_optimizer(lr=LR)
     cfg = jstep.LossConfig()
-    params = {"disp": dv["params"], "pose": pv["params"]}
-    stats = {"disp": dv["batch_stats"], "pose": pv["batch_stats"]}
-    state = jstate.TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
-                              opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
     train_step = jstep.make_train_step(jdisp, jpose, tx, cfg)
 
     def run(state, batch):
         grads = jax.grad(lambda p: jstep._total_loss(
             jdisp, jpose, p, state.batch_stats, batch, cfg, True)[0])(state.params)
         new_state, metrics = train_step(state, batch)
-        return metrics, grads, new_state.batch_stats, new_state.params
+        return metrics, grads, new_state
 
+    return tx, jax.jit(run)
+
+
+def _jax_state(tx):
+    """The JAX train state at step 0 over ``_variables()``."""
+    _, _, dv, pv = _variables()
+    params = {"disp": dv["params"], "pose": pv["params"]}
+    stats = {"disp": dv["batch_stats"], "pose": pv["batch_stats"]}
+    return jstate.TrainState(step=jnp.zeros((), jnp.int32), params=params, batch_stats=stats,
+                             opt_state=tx.init(params), rng=jax.random.PRNGKey(0))
+
+
+@functools.cache
+def _jax_run():
+    """JAX's make_train_step on the batch, and the gradient of its loss:
+    (metrics, grads, new batch_stats, new params, old params), numpy trees."""
+    tx, run = _jax_program()
+    state = _jax_state(tx)
     batch = {k: jnp.asarray(v) for k, v in _batch().items()}
     with jax.default_matmul_precision("highest"):
-        out = jax.jit(run)(state, batch)
-    return jax.tree_util.tree_map(np.asarray, out) + (
-        jax.tree_util.tree_map(np.asarray, params),)
+        metrics, grads, new_state = run(state, batch)
+    out = (metrics, grads, new_state.batch_stats, new_state.params, state.params)
+    return jax.tree_util.tree_map(np.asarray, out)
 
 
 @functools.cache

@@ -193,8 +193,7 @@ def test_with_pretrain_without_weights_is_an_error(tree, workdir, tmp_path, monk
 
 
 @pytest.mark.parametrize("flag", [["--sampler", "gather"], ["--spatial-shards", "2"],
-                                  ["--distributed"], ["--fused-steps", "2"],
-                                  ["--profile-dir", "trace"]])
+                                  ["--distributed"]])
 def test_left_out_flags_are_rejected(tree, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.build_parser().parse_args([tree, "--name", "x"] + flag)
