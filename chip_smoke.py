@@ -73,7 +73,21 @@ the run (non-zero exit) when it fails:
    step and data wait, peak memory. Then ``--profile-dir`` traces of one
    eager CLI dispatch and one fused one, each summarized (kernels
    recorded, device busy time, launches on the host).
-9. Output: a ``{"kernels": [...]}`` line (``launches``: the fused CLI
+9. This slice's main path, evaluation on the card (``[eval]``): PNGs
+   written from ``--seed`` with ``write_png`` in all five row filters (16
+   KITTI-raw frames at 1242x375 with sparse ground truth, a 60-frame
+   KITTI-odometry sequence 09 at 1241x376 with poses at 2 m per frame) and
+   the seeded networks as ``.pth.tar``; then ``test_disp`` (bf16, batch 8),
+   ``eval_depth``, ``run_inference`` (4 frames), ``test_vo`` (batch 16),
+   ``eval_odom`` (``--align 7dof``) and ``test_pose`` through their
+   ``main``, at 832x256, each with the launch counts at 0 just before it
+   (all four kernels must stay at 0). Checked: ``test_disp``'s fp32 depth
+   on the card against the CPU (4 frames) and ``test_vo``'s fp32
+   trajectory (9 frames); ``eval_odom`` of the ground truth against
+   itself; every output file and every printed metric. Printed: bf16
+   against fp32, ``Avg Time``/fps, the CLI's wall time per frame,
+   ``read_png`` ms by row filter, pairs/s, snippets/s, memory.
+10. Output: a ``{"kernels": [...]}`` line (``launches``: the fused CLI
    run's, with every path's in ``launches_by_path``), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -91,20 +105,27 @@ import glob
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sc_sfmlearner_release_tpu_torch import disable_tf32
+from sc_sfmlearner_release_tpu_torch import (
+    disable_tf32, eval_depth, eval_odom, run_inference, test_disp, test_pose, test_vo,
+)
 from sc_sfmlearner_release_tpu_torch import train as train_cli
 from sc_sfmlearner_release_tpu_torch.data import BatchLoader, PackedSequenceSet, device_augment
+from sc_sfmlearner_release_tpu_torch.data.image_io import FILTERS, read_png, write_png
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
-from sc_sfmlearner_release_tpu_torch.models.convert import load_torch_state_dict
+from sc_sfmlearner_release_tpu_torch.models.convert import (
+    load_torch_state_dict, save_torch_checkpoint,
+)
 from sc_sfmlearner_release_tpu_torch.ops import KERNEL_WRAPPERS, _build
 from sc_sfmlearner_release_tpu_torch.ops.geometry import project_pixel_coords
 from sc_sfmlearner_release_tpu_torch.ops.ssim import (
@@ -891,6 +912,13 @@ LR = 1e-4                # make_optimizer's default
 CLI_FUSED_K = 5          # the CLI's --fused-steps: 2 dispatches per 10-step epoch
 
 
+def noise_texture(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """uint8 ``[h, w, 3]``: 8x8-pixel blocks of noise with finer noise on them."""
+    coarse = rng.randint(32, 224, (-(-h // 8), -(-w // 8), 3))
+    texture = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:h, :w]
+    return np.clip(texture + rng.randint(-24, 25, texture.shape), 0, 255).astype(np.uint8)
+
+
 def write_packed_dataset(root: str, seed: int) -> int:
     """CLI_SCENES as a packed dataset under ``root/packed``: per scene a
     camera panning over a texture (8x8-pixel blocks of noise with finer noise
@@ -904,9 +932,7 @@ def write_packed_dataset(root: str, seed: int) -> int:
                        shape=(n_frames, H, W, 3))
     scenes, start = {}, 0
     for name, count in CLI_SCENES:
-        coarse = rng.randint(32, 224, (-(-H // 8), -(-(W + 2 * count) // 8), 3))
-        texture = np.repeat(np.repeat(coarse, 8, 0), 8, 1)[:H, :W + 2 * count]
-        texture = np.clip(texture + rng.randint(-24, 25, texture.shape), 0, 255).astype(np.uint8)
+        texture = noise_texture(rng, H, W + 2 * count)
         for i in range(count):
             frames[start + i] = texture[:, 2 * i:2 * i + W]
         scenes[name] = {"start": start, "count": count,
@@ -1110,6 +1136,265 @@ def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
             log(f"[profile-dir] the {label} trace holds no device kernel records")
     shutil.rmtree(root, ignore_errors=True)
     return {"train_cli": launches, "train_cli_fused": fused_launches}
+
+
+# The eval phase: the evaluation and inference CLIs at full width (ResNet-18,
+# 832x256: scripts/test_kitti_depth.sh, test_kitti_vo.sh, test_kitti_pose.sh)
+# on PNGs written from --seed, each frame with one of the five row filters: a
+# KITTI-raw-shaped depth set with sparse ground truth and a KITTI-odometry-
+# shaped sequence 09 (a camera panning over a texture) with its poses.
+EVAL_DIR = os.path.join("build", "chip_smoke_eval")
+DEPTH_FRAMES, DEPTH_HW = 16, (375, 1242)
+ODOM_FRAMES, ODOM_HW = 60, (376, 1241)
+ODOM_STEP_M, ODOM_YAW = 2.0, 0.004   # per frame: 118 m in all, so a 100 m segment exists
+EVAL_CHECK_FRAMES = 4   # test_disp frames held against the CPU
+VO_CHECK_FRAMES = 9     # test_vo frames held against the CPU
+EVAL_DEPTH_RTOL = 1e-3  # fp32 depth, card against CPU, max rel
+EVAL_TRAJ_TOL = 1e-4    # fp32 trajectory, card against CPU, of max|ref|
+ODOM_SELF_TOL = 1e-6    # eval_odom of the ground truth against itself
+NUMBER = r"[-+]?(?:\d+\.?\d*|\.\d+)(?:[eE][-+]?\d+)?|nan|inf"
+
+
+def odometry_poses() -> np.ndarray:
+    """``[ODOM_FRAMES, 12]`` KITTI rows: ODOM_STEP_M forward per frame,
+    turning by ODOM_YAW about the vertical axis."""
+    rows, position = [], np.zeros(3)
+    for i in range(ODOM_FRAMES):
+        yaw = ODOM_YAW * i
+        rot = np.array([[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0], [-np.sin(yaw), 0, np.cos(yaw)]])
+        rows.append(np.concatenate([rot, position[:, None]], axis=1).reshape(-1))
+        position = position + ODOM_STEP_M * rot[:, 2]
+    return np.stack(rows)
+
+
+def write_eval_data(root: str, seed: int) -> dict:
+    """The depth set, its ground truth, the odometry sequence, its poses and
+    the two networks' ``.pth.tar``; returns their paths."""
+    rng = np.random.RandomState(seed)
+    paths = {"depth": os.path.join(root, "depth"), "gt": os.path.join(root, "depth_gt"),
+             "odom": os.path.join(root, "odom"),
+             "seq": os.path.join(root, "odom", "sequences", "09", "image_2"),
+             "poses": os.path.join(root, "odom", "poses"),
+             "disp": os.path.join(root, "dispnet_model_best.pth.tar"),
+             "pose": os.path.join(root, "exp_pose_model_best.pth.tar")}
+    for key in ("depth", "gt", "seq", "poses"):
+        os.makedirs(paths[key])
+    jobs = []
+    h, w = DEPTH_HW
+    for i in range(DEPTH_FRAMES):
+        jobs.append((os.path.join(paths["depth"], f"{i:010d}.png"), noise_texture(rng, h, w),
+                     i % len(FILTERS)))
+        # far at the top, near at the bottom, 5% of the pixels valid (LiDAR)
+        gt = (80 - 75 * np.linspace(0, 1, h)[:, None]) * (1 + 0.1 * rng.rand(h, w))
+        gt[rng.rand(h, w) > 0.05] = 0
+        np.save(os.path.join(paths["gt"], f"{i:010d}.npy"), gt.astype(np.float32))
+    h, w = ODOM_HW
+    pan = noise_texture(rng, h, w + 2 * ODOM_FRAMES)
+    for i in range(ODOM_FRAMES):
+        jobs.append((os.path.join(paths["seq"], f"{i:06d}.png"), pan[:, 2 * i:2 * i + w],
+                     i % len(FILTERS)))
+    with ThreadPoolExecutor(8) as pool:  # zlib releases the GIL
+        list(pool.map(lambda job: write_png(*job), jobs))
+    np.savetxt(os.path.join(paths["poses"], "09.txt"), odometry_poses(), fmt="%.12e")
+    disp_net, pose_net = make_nets(seed + 11)
+    save_torch_checkpoint(disp_net.state_dict(), paths["disp"])
+    save_torch_checkpoint(pose_net.state_dict(), paths["pose"])
+    return paths
+
+
+def run_eval_cli(module, argv, label: str):
+    """``module.main(argv)`` with the launch counts at 0 just before it:
+    (its printed output, wall seconds, launches). Its lines are printed
+    after it ends; it must launch none of the four kernels."""
+    out = io.StringIO()
+    zero_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        code = module.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = read_launches()
+    text = out.getvalue()
+    for line in text.splitlines():
+        if line.strip():
+            log(f"  [{label}] {line.strip()}")
+    if code != 0:
+        raise AssertionError(f"{label} exited {code}")
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched {launches}")
+    return text, secs, launches
+
+
+def printed(text: str, prefix: str) -> np.ndarray:
+    """The numbers of the last printed line that starts with ``prefix``,
+    all finite."""
+    lines = [ln.strip() for ln in text.splitlines() if ln.strip().startswith(prefix)]
+    if not lines:
+        raise AssertionError(f"no printed line starts with {prefix!r}")
+    values = np.array([float(v) for v in re.findall(NUMBER, lines[-1][len(prefix):])])
+    if not values.size or not np.isfinite(values).all():
+        raise AssertionError(f"{prefix!r}: {lines[-1]}")
+    return values
+
+
+def expect_files(paths) -> None:
+    missing = [p for p in paths if not os.path.isfile(p)]
+    if missing:
+        raise AssertionError(f"missing outputs: {missing}")
+
+
+def eval_phase(seed: int, smi: str) -> dict:
+    """The six evaluation and inference CLIs on the card; each one's
+    launches (all 0), its outputs and printed metrics, the card against the
+    CPU, bf16 against fp32 and the times."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(EVAL_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    paths = write_eval_data(root, seed)
+    log(f"[eval] wrote {DEPTH_FRAMES} depth frames at {DEPTH_HW[1]}x{DEPTH_HW[0]} and "
+        f"{ODOM_FRAMES} odometry frames at {ODOM_HW[1]}x{ODOM_HW[0]} (row filters by frame: "
+        f"{', '.join(FILTERS)}), ground truth and networks in {time.perf_counter() - t_phase:.2f} s")
+    depth_files = sorted(glob.glob(os.path.join(paths["depth"], "*.png")))
+    decode_ms = {}
+    for k, name in enumerate(FILTERS):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            img = read_png(depth_files[k])
+            times.append((time.perf_counter() - t) * 1e3)
+        if img.shape != DEPTH_HW + (3,):
+            raise AssertionError(f"read_png {depth_files[k]}: shape {img.shape}")
+        decode_ms[name] = float(np.median(times))
+    log(f"[eval] read_png ms per {DEPTH_HW[1]}x{DEPTH_HW[0]} frame by row filter (median of 3, "
+        f"host clock) | {smi}: {decode_ms}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases
+    by_path, out = {}, lambda name: os.path.join(root, name)
+
+    # test_disp: bf16 (the default), fp32 on the card, fp32 on the CPU.
+    disp_args = ["--pretrained-dispnet", paths["disp"], "--resnet-layers", "18",
+                 "--dataset-dir", paths["depth"]]
+    text, secs, by_path["test_disp"] = run_eval_cli(
+        test_disp, disp_args + ["--output-dir", out("disp_bf16"), "--batch-size", "8"],
+        "test_disp")
+    avg_s, fps = printed(text, "Avg Time:")[0], printed(text, "Avg Speed:")[0]
+    bf16 = np.load(out("disp_bf16/predictions.npy"))
+    decode_s = sum(decode_ms[FILTERS[i % len(FILTERS)]] for i in range(DEPTH_FRAMES)) / 1e3
+    log(f"[eval] test_disp bf16 (batch 8, {DEPTH_FRAMES} frames) | {smi}: Avg Time "
+        f"{avg_s * 1e3:.4f} ms per frame, {fps:.2f} fps (inference and the copy back, batches "
+        f"after the first); the CLI's wall time {secs * 1e3 / DEPTH_FRAMES:.2f} ms per frame "
+        f"(network set-up, decode, resize, the first batch's warm-up), of which read_png's "
+        f"share {decode_s / secs:.3f} (its times above)")
+    run_eval_cli(test_disp, disp_args + ["--output-dir", out("disp_fp32"), "--batch-size", "8",
+                                         "--precision", "fp32"], "test_disp fp32")
+    check_list = out("check_frames.txt")
+    with open(check_list, "w") as f:
+        f.write("\n".join(depth_files[:EVAL_CHECK_FRAMES]) + "\n")
+    run_eval_cli(test_disp, ["--pretrained-dispnet", paths["disp"], "--resnet-layers", "18",
+                             "--dataset-list", check_list, "--output-dir", out("disp_cpu"),
+                             "--batch-size", str(EVAL_CHECK_FRAMES), "--device", "cpu",
+                             "--precision", "fp32"], "test_disp cpu")
+    fp32 = np.load(out("disp_fp32/predictions.npy"))
+    cpu = np.load(out("disp_cpu/predictions.npy"))
+    for name, a in (("bf16", bf16), ("fp32", fp32)):
+        if a.shape != (DEPTH_FRAMES, H, W) or not (np.isfinite(a).all() and (a > 0).all()):
+            raise AssertionError(f"test_disp {name} predictions: {a.shape}, finite and > 0 "
+                                 "expected")
+    rel = float(np.max(np.abs(fp32[:EVAL_CHECK_FRAMES] - cpu) / cpu))
+    log(f"[eval] test_disp fp32 depth, card against the CPU, first {EVAL_CHECK_FRAMES} frames: "
+        f"max rel {rel:.3e} (tol {EVAL_DEPTH_RTOL:.0e})")
+    if not rel <= EVAL_DEPTH_RTOL:
+        raise AssertionError(f"test_disp fp32 card vs CPU: max rel {rel:.3e}")
+    bf_rel = np.abs(bf16 - fp32) / fp32
+    log(f"[eval] test_disp bf16 against fp32 on the card (reported, not a gate): max rel "
+        f"{bf_rel.max():.3e}, median rel {np.median(bf_rel):.3e}")
+
+    text, _, by_path["eval_depth"] = run_eval_cli(
+        eval_depth, ["--dataset", "kitti", "--pred_depth", out("disp_bf16/predictions.npy"),
+                     "--gt_depth", paths["gt"]], "eval_depth")
+    if printed(text, "&").size != 7:
+        raise AssertionError("eval_depth: 7 KITTI metrics expected")
+    printed(text, "Scaling ratios | med:")
+
+    viz_list = out("viz_frames.txt")
+    with open(viz_list, "w") as f:
+        f.write("\n".join(os.path.basename(p) for p in depth_files[:4]) + "\n")
+    _, _, by_path["run_inference"] = run_eval_cli(
+        run_inference, ["--pretrained", paths["disp"], "--resnet-layers", "18",
+                        "--dataset-dir", paths["depth"], "--dataset-list", viz_list,
+                        "--output-dir", out("viz"), "--output-disp", "--output-depth"],
+        "run_inference")
+    written = [out(f"viz/{os.path.basename(p)[:-4]}_{kind}.png") for p in depth_files[:4]
+               for kind in ("disp", "depth")]
+    expect_files(written)
+    for path in written:
+        if read_png(path).shape != (H, W, 3):
+            raise AssertionError(f"run_inference {path}: shape {read_png(path).shape}")
+
+    vo_args = ["--pretrained-posenet", paths["pose"], "--sequence", "09"]
+    text, secs, by_path["test_vo"] = run_eval_cli(
+        test_vo, vo_args + ["--dataset-dir", os.path.join(paths["odom"], "sequences"),
+                            "--output-dir", out("vo"), "--batch-size", "16"], "test_vo")
+    traj = np.loadtxt(out("vo/09.txt"))
+    if traj.shape != (ODOM_FRAMES, 12) or not np.isfinite(traj).all():
+        raise AssertionError(f"test_vo trajectory {traj.shape}")
+    log(f"[eval] test_vo bf16 (batch 16) | {smi}: {(ODOM_FRAMES - 1) / secs:.2f} pairs/s over "
+        f"the CLI's wall time, network set-up and decode included ({secs:.3f} s for "
+        f"{ODOM_FRAMES - 1} pairs)")
+    few = os.path.join(root, "vo_few", "09", "image_2")
+    os.makedirs(few)
+    for p in sorted(glob.glob(os.path.join(paths["seq"], "*.png")))[:VO_CHECK_FRAMES]:
+        os.symlink(p, os.path.join(few, os.path.basename(p)))
+    few_args = vo_args + ["--dataset-dir", os.path.dirname(os.path.dirname(few)),
+                          "--precision", "fp32"]
+    run_eval_cli(test_vo, few_args + ["--output-dir", out("vo_card"), "--batch-size", "16"],
+                 "test_vo fp32")
+    run_eval_cli(test_vo, few_args + ["--output-dir", out("vo_cpu"), "--device", "cpu",
+                                      "--batch-size", str(VO_CHECK_FRAMES - 1)], "test_vo cpu")
+    card, ref = np.loadtxt(out("vo_card/09.txt")), np.loadtxt(out("vo_cpu/09.txt"))
+    err = float(np.abs(card - ref).max() / np.abs(ref).max())
+    log(f"[eval] test_vo fp32 trajectory, card against the CPU, first {VO_CHECK_FRAMES} frames: "
+        f"max|err| / max|ref| {err:.3e} (tol {EVAL_TRAJ_TOL:.0e})")
+    if card.shape != ref.shape or not err <= EVAL_TRAJ_TOL:
+        raise AssertionError(f"test_vo fp32 card vs CPU: {err:.3e}")
+
+    odom_args = ["--gt_dir", paths["poses"], "--align", "7dof", "--seqs", "9", "--no-plot",
+                 "--no-confirm"]
+    text, _, by_path["eval_odom"] = run_eval_cli(eval_odom, ["--result", out("vo")] + odom_args,
+                                                 "eval_odom")
+    for prefix in ("Translational error (%):", "Rotational error (deg/100m):", "ATE (m):",
+                   "RPE (m):", "RPE (deg):"):
+        printed(text, prefix)
+    expect_files([out("vo/result.txt"), out("vo/errors/09.txt")])
+    if not open(out("vo/errors/09.txt")).read().strip():
+        raise AssertionError("eval_odom: no 100 m segment was evaluated")
+    os.makedirs(out("gt_as_result"))
+    shutil.copy(os.path.join(paths["poses"], "09.txt"), out("gt_as_result/09.txt"))
+    text, _, _ = run_eval_cli(eval_odom, ["--result", out("gt_as_result")] + odom_args,
+                              "eval_odom gt")
+    t_err, ate = printed(text, "Translational error (%):")[0], printed(text, "ATE (m):")[0]
+    log(f"[eval] eval_odom of the ground truth against itself: t_err {t_err:.3e} %, ATE "
+        f"{ate:.3e} m (tol {ODOM_SELF_TOL:.0e})")
+    if not (t_err < ODOM_SELF_TOL and ate < ODOM_SELF_TOL):
+        raise AssertionError(f"eval_odom self-evaluation: t_err {t_err}, ATE {ate}")
+
+    text, secs, by_path["test_pose"] = run_eval_cli(
+        test_pose, [paths["pose"], "--dataset-dir", paths["odom"], "--sequences", "09",
+                    "--output-dir", out("pose")], "test_pose")
+    printed(text, "mean")
+    printed(text, "std")
+    snippets = np.load(out("pose/predictions.npy"))
+    if snippets.shape != (ODOM_FRAMES - 4, 5, 3, 4) or not np.isfinite(snippets).all():
+        raise AssertionError(f"test_pose predictions {snippets.shape}")
+    log(f"[eval] test_pose bf16 | {smi}: {snippets.shape[0]} snippets in {secs:.3f} s of the "
+        f"CLI's wall time ({snippets.shape[0] / secs:.2f} snippets/s, each frame decoded once)")
+    log(f"[eval] peak device memory of the eval CLIs "
+        f"{(torch.cuda.max_memory_allocated() - held) / 2**30:.3f} GiB above the "
+        f"{held / 2**30:.3f} GiB that earlier phases hold | {smi}; launches of the four "
+        f"kernels on every eval path: 0; phase {time.perf_counter() - t_phase:.1f} s")
+    shutil.rmtree(root, ignore_errors=True)
+    return by_path
 
 
 def uint8_snippet(rng: np.random.RandomState) -> dict:
@@ -1432,6 +1717,8 @@ def main(argv=None) -> int:
     log("[cli] the train CLI from a packed dataset on disk, eager and with --fused-steps")
     by_path.update(cli_phase(args.seed, by_path["train_step"], by_path["validation_step"]))
     staging_phase(args.seed, rng)
+    log("[eval] the evaluation and inference CLIs at full width from PNGs on disk")
+    by_path.update(eval_phase(args.seed, smi))
     for k in kernels:
         k["launches"] = by_path["train_cli_fused"][k["name"]]
         k["launches_per_train_step"] = by_path["train_step"][k["name"]]

@@ -25,6 +25,18 @@ dataset crawlers, the packed uint8 format, the batch loader, the host
 transforms, the device augmentation) reaches the card through
 ``parallel.device_prefetch``.
 
+The evaluation and inference CLIs, each ``python -m
+sc_sfmlearner_release_tpu_torch.<name>`` with a ``main(argv)`` and the root
+CLI's flags: ``test_disp`` (DispNet over a test list, ``predictions.npy``),
+``eval_depth`` (KITTI/NYU depth metrics), ``run_inference`` (colormapped
+disparity and depth PNGs), ``test_pose`` (5-frame snippet ATE/RE),
+``test_vo`` (a KITTI odometry trajectory) and ``eval_odom`` (the KITTI
+odometry devkit's metrics, ``evaluation/``). The network CLIs add
+``--device`` and ``--precision``; they share ``inference.py`` (loading,
+batching, ``make_pose_inference_fn``), and read PNGs through
+``data/image_io.py`` (numpy PNG codec, OpenCV's resizes in torch), so the
+card needs neither ``imageio`` nor ``cv2``.
+
 Entry points take ``device=None`` (the CLI ``--device cuda``), which means
 CUDA, and raise when no card is present unless the caller asks for the CPU.
 """
@@ -43,6 +55,15 @@ def resolve_device(device=None) -> torch.device:
             "plain PyTorch path"
         )
     return dev
+
+
+def cli_device(name: str) -> torch.device:
+    """A CLI's ``--device`` as a torch device; a clear exit when CUDA is
+    asked for and absent."""
+    try:
+        return resolve_device(name)
+    except RuntimeError as exc:
+        raise SystemExit(f"--device {name}: {exc}") from exc
 
 
 def disable_tf32() -> None:

@@ -58,7 +58,7 @@ import time
 import numpy as np
 import torch
 
-from . import resolve_device
+from . import cli_device
 from .data import (BatchLoader, PackedSequenceSet, PairSet, SequenceSet, ValidationSet,
                    transforms)
 from .data.device_augment import AugmentConfig, make_device_augment
@@ -323,10 +323,7 @@ def _write_rows(path: str, rows, mode: str = "a") -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as exc:
-        raise SystemExit(f"--device {args.device}: {exc}") from exc
+    device = cli_device(args.device)
     if args.debug_nans:
         enable_nan_debugging()
 

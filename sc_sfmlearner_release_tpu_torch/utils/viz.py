@@ -1,10 +1,15 @@
 """Visualization helpers: depth/disparity colormapping for TensorBoard and
-image dumps. The port's own copy of the JAX package's ``utils/viz.py``
-(matplotlib is imported only when a colormap is first built).
+image dumps. The port's own copy of the JAX package's ``utils/viz.py``.
 
 Reference behavior: the reference's utils.py:12-54 — a high-resolution
 magma/bone colormap and an 'opencv_rainbow' map applied to normalized depth,
 plus image de-normalization for logging.
+
+``bone`` and ``rainbow`` are built in numpy from their segment data, as
+matplotlib's ``LinearSegmentedColormap`` builds its lookup table (linear
+interpolation at ``linspace(0, 1, N)``), so the CLIs that use them need no
+matplotlib. Every other map (``magma``, ``plasma``) is matplotlib's own and
+raises ``ImportError`` where matplotlib is not installed.
 """
 
 from __future__ import annotations
@@ -15,32 +20,46 @@ import numpy as np
 
 _COLORMAP_RES = 1024
 
+# (x, value) stops per channel: matplotlib's ``_cm.py`` ``_bone_data``.
+_BONE = (
+    ((0.0, 0.0), (0.746032, 0.652778), (1.0, 1.0)),
+    ((0.0, 0.0), (0.365079, 0.319444), (0.746032, 0.777778), (1.0, 1.0)),
+    ((0.0, 0.0), (0.365079, 0.444444), (1.0, 1.0)),
+)
+# OpenCV-style rainbow (reference: utils.py:12-22): (x, (r, g, b)) stops.
+_RAINBOW = (
+    (0.000, (1.00, 0.00, 0.00)),
+    (0.400, (1.00, 1.00, 0.00)),
+    (0.600, (0.00, 1.00, 0.00)),
+    (0.800, (0.00, 0.00, 1.00)),
+    (1.000, (0.60, 0.00, 1.00)),
+)
+
+
+def _segments(channels, resolution: int = _COLORMAP_RES) -> np.ndarray:
+    """``[resolution, 3]`` float32 table of per-channel ``(x, value)`` stops."""
+    x = np.linspace(0, 1, resolution)
+    return np.stack([np.interp(x, *np.asarray(stops).T) for stops in channels],
+                    axis=1).astype(np.float32)
+
 
 def _opencv_rainbow(resolution: int = _COLORMAP_RES) -> np.ndarray:
-    """OpenCV-style rainbow (reference: utils.py:12-22) sampled to [R,3]."""
-    try:
-        from matplotlib.colors import LinearSegmentedColormap
+    return _segments([[(x, rgb[i]) for x, rgb in _RAINBOW] for i in range(3)], resolution)
 
-        data = (
-            (0.000, (1.00, 0.00, 0.00)),
-            (0.400, (1.00, 1.00, 0.00)),
-            (0.600, (0.00, 1.00, 0.00)),
-            (0.800, (0.00, 0.00, 1.00)),
-            (1.000, (0.60, 0.00, 1.00)),
-        )
-        cmap = LinearSegmentedColormap.from_list("opencv_rainbow", data, resolution)
-        return cmap(np.linspace(0, 1, resolution))[:, :3].astype(np.float32)
-    except ImportError:  # pragma: no cover
-        ramp = np.linspace(0, 1, resolution, dtype=np.float32)
-        return np.stack([1 - ramp, np.ones_like(ramp), ramp], axis=1)
+
+def _bone(resolution: int = _COLORMAP_RES) -> np.ndarray:
+    return _segments(_BONE, resolution)
 
 
 def _mpl_map(name: str, resolution: int = _COLORMAP_RES) -> np.ndarray:
-    import matplotlib.cm as cm
-
-    return cm.get_cmap(name, resolution)(np.linspace(0, 1, resolution))[:, :3].astype(
-        np.float32
-    )
+    try:
+        import matplotlib
+    except ImportError as exc:
+        raise ImportError(
+            f"the {name!r} colormap is matplotlib's, which is not installed; "
+            "'bone' and 'rainbow' need no matplotlib") from exc
+    cmap = matplotlib.colormaps[name].resampled(resolution)
+    return cmap(np.linspace(0, 1, resolution))[:, :3].astype(np.float32)
 
 
 _CMAPS = {}
@@ -48,9 +67,8 @@ _CMAPS = {}
 
 def _get_cmap(name: str) -> np.ndarray:
     if name not in _CMAPS:
-        _CMAPS[name] = (
-            _opencv_rainbow() if name == "rainbow" else _mpl_map(name)
-        )
+        numpy_tables = {"rainbow": _opencv_rainbow, "bone": _bone}
+        _CMAPS[name] = numpy_tables[name]() if name in numpy_tables else _mpl_map(name)
     return _CMAPS[name]
 
 
