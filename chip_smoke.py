@@ -111,7 +111,29 @@ the run (non-zero exit) when it fails:
    per format, the workers' start-up and memory, decode ms per 832x256
    JPEG one at a time and batched, the JPEG tree's CLI step and data wait
    against the packed CLI of phase 6.
-11. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
+11. This slice's main path, the JAX package's checkpoints
+   (``[checkpoints]``): seeded full-width nets after 3 bf16 Adam steps
+   written as ``.msgpack`` (``save_jax_checkpoint``) and as ``.pth.tar``;
+   ``test_disp`` and ``test_vo`` on phase 9's frames from either file
+   (depths and trajectories bit-equal); ``restore_train_state`` from
+   either directory into fresh nets on the card (parameters, BatchNorm
+   statistics, Adam moments and steps bit-equal); the train CLI with
+   ``--resume`` of the JAX directory on phase 6's packed dataset for one
+   epoch of 10 steps, eager and with ``--fused-steps 5``, each with the
+   launch counts at 0 (every kernel in every step, steps 4-13, finite
+   losses); ``convert_checkpoint`` from ``.pth.tar`` to ``.msgpack`` and
+   back bit-equal; write and read times, sizes and the host memory of a
+   restore.
+12. This slice's tools (``[tools]``), each with the launch counts at 0:
+   ``synthetic_scene`` writes 24+8 frames and the train CLI trains from
+   that JPEG tree for 10 steps with ``--with-gt`` validation on its
+   ``.npy`` depth (every kernel in every step); ``overfit_check`` at its
+   defaults must pass; ``mfu_report`` at B4, K = 5; ``profile_step`` at
+   K = 5, whose device window per step (its kernel groups plus the idle
+   time between the replays' records) must be within 10% of phase 7's
+   graph device time; ``ablate_step`` on ``full``, ``no_ssim`` and
+   ``convs_only``.
+13. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
    CLI run's of phase 10, with every path's in ``launches_by_path``), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -165,12 +187,20 @@ from sc_sfmlearner_release_tpu_torch.ops.warp import (
     warp_sample, warp_sample_bwd, warp_sample_plain,
 )
 from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch
-from sc_sfmlearner_release_tpu_torch.tools import make_smoke_kitti
+from sc_sfmlearner_release_tpu_torch.inference import restore_disp_state
+from sc_sfmlearner_release_tpu_torch.tools import (
+    ablate_step, convert_checkpoint, make_smoke_kitti, mfu_report, overfit_check, profile_step,
+    synthetic_scene,
+)
+from sc_sfmlearner_release_tpu_torch.tools.profile_step import profile_phase, trace_summary
 from sc_sfmlearner_release_tpu_torch.training import (
     LossConfig, create_train_state, make_eval_step, make_inference_fn, make_optimizer,
     make_train_step,
 )
-from sc_sfmlearner_release_tpu_torch.training.checkpoint import restore_train_state
+from sc_sfmlearner_release_tpu_torch.training.checkpoint import (
+    restore_train_state, save_checkpoint, save_jax_checkpoint,
+)
+from sc_sfmlearner_release_tpu_torch.utils.profiling import card_line
 
 DEVICE = "cuda"
 B, N, H, W = 4, 2, 256, 832
@@ -282,10 +312,7 @@ def kitti_intrinsics(b: int) -> np.ndarray:
 
 
 def device_phase() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     disable_tf32()
     log(f"[device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
         f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -637,77 +664,6 @@ def make_batch(rng: np.random.RandomState) -> dict:
             "intrinsics": kitti_intrinsics(B)}
 
 
-# First match wins: the backward kernels before the forwards, cuDNN's
-# BatchNorm and layout kernels before its convolutions.
-KERNEL_GROUPS = (
-    ("warp_sample_bwd", ("warp_sample_bwd",)),
-    ("warp_sample", ("warp_sample",)),
-    ("ssim_bwd", ("ssim_bwd_kernel",)),
-    ("ssim", ("ssim_kernel",)),
-    ("batch_norm", ("batch_norm", "bn_fw", "bn_bw")),
-    ("layout", ("nchwtonhwc", "nhwctonchw")),
-    ("conv/gemm", ("conv", "xmma", "cudnn", "gemm", "implicit", "winograd", "fft", "dgrad",
-                   "wgrad")),
-    ("optimizer", ("multi_tensor", "adam")),
-    ("copy/cast", ("copy", "memcpy", "memset", "catarray")),
-    ("reduce", ("reduce",)),
-    ("pad/pool/upsample", ("reflection", "pool", "upsample")),
-    ("elementwise", ("elementwise",)),
-)
-
-
-def profile_window(step, batch, steps: int):
-    """One profiled window of ``steps`` steps: (rows of (device us, count,
-    kernel) without the annotation ranges ("Optimizer.step#Adam.step"),
-    which span kernels counted on their own; wall ms; whether the device
-    recorded every launch, copy and fill the host asked for)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            step(batch)
-            torch.cuda.synchronize()  # fewer device records outstanding at once
-        wall_ms = (time.perf_counter() - t) * 1e3
-    events = prof.key_averages()
-    rows = [(e.self_device_time_total, e.count, e.key) for e in events
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-            and "#" not in e.key]
-    calls = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CPU
-                and e.key.startswith(("cudaLaunchKernel", "cuLaunchKernel", "cudaMemcpyAsync",
-                                      "cudaMemsetAsync")))
-    return sorted(rows, reverse=True), wall_ms, sum(r[1] for r in rows) >= calls
-
-
-def profile_phase(step, batch, label: str, steps: int = 3, tries: int = 3) -> None:
-    """Device time by kernel over a few steps (torch.profiler) and the
-    device's busy share of the window. The profiler can drop device events;
-    a window whose device records fall short of the host's calls is taken
-    again, up to ``tries`` times, and otherwise reported as a lower bound."""
-    step(batch)
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        rows, wall_ms, complete = profile_window(step, batch, steps)
-        if complete:
-            break
-    if not rows:
-        log("[profile] the profiler recorded no device time: not measured")
-        return
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    log(f"[profile] {label}: wall {wall_ms / steps:.4f} ms/step, device busy "
-        f"{busy_ms / steps:.4f} ms/step ({100 * busy_ms / wall_ms:.1f}% of the window); "
-        + ("every launch recorded" if complete else
-           f"events were dropped in {tries} windows, busy is a lower bound"))
-    groups = {}
-    for us, _, key in rows:
-        name = next((g for g, pats in KERNEL_GROUPS if any(p in key.lower() for p in pats)), "other")
-        groups[name] = groups.get(name, 0.0) + us / 1e3 / steps
-    log("[profile] ms/step by group: " + ", ".join(
-        f"{g} {ms:.4f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])))
-    for us, n, key in rows[:20]:
-        log(f"  {us / 1e3 / steps:9.4f} ms/step  x{n // steps:<4d} {key[:100]}")
-
-
 # Every kernel wrapper of the port, by the name the kernels line gives it.
 WRAPPERS = {fn.__name__: fn for fn in KERNEL_WRAPPERS}
 
@@ -1053,43 +1009,6 @@ def cli_times(save: str, prefix: str, skip: int) -> dict:
             f"{prefix}_data_wait_ms_mean_after_{skip}": float(np.mean(wait_ms[skip:]))}
 
 
-def union_ms(intervals) -> float:
-    """Total length of the union of ``(start_us, end_us)`` intervals, ms."""
-    total, reach = 0.0, -np.inf
-    for start, end in sorted(intervals):
-        if end > reach:
-            total += end - max(start, reach)
-            reach = end
-    return total / 1e3
-
-
-def trace_summary(trace_dir: str) -> dict:
-    """What a ``--profile-dir`` trace of one dispatch holds: the window, the
-    device's kernels (by the port's kernels' names), busy time and share,
-    and the host's launches."""
-    (path,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
-    with open(path) as f:
-        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
-    kernels = [e for e in events if e.get("cat") == "kernel"]
-    runtime = [e for e in events if e.get("cat") == "cuda_runtime"]
-    window_ms = (max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)) / 1e3
-    busy_ms = union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    ours = {}
-    for e in kernels:
-        name = next((n for n in ("warp_sample_bwd", "warp_sample", "ssim_bwd_kernel",
-                                 "ssim_kernel") if n in e["name"]), None)
-        if name:
-            ours[name] = ours.get(name, 0) + 1
-    launch_calls = [e for e in runtime if "LaunchKernel" in e["name"]]
-    return {"window_ms": window_ms, "device_kernels": len(kernels), "device_busy_ms": busy_ms,
-            "device_busy_share": busy_ms / window_ms if window_ms else None,
-            "port_kernels": ours, "host_kernel_launches": len(launch_calls),
-            "host_launch_ms": sum(e["dur"] for e in launch_calls) / 1e3,
-            "graph_launches": sum("GraphLaunch" in e["name"] for e in runtime),
-            "threads_with_cpu_ops": len({e["tid"] for e in events if e.get("cat") == "cpu_op"}),
-            "trace_mb": os.path.getsize(path) / 1e6}
-
-
 def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
     """The train CLI from disk: the eager run and, this slice's main path,
     the ``--fused-steps`` run; launches, logs, checkpoints, the restored
@@ -1236,9 +1155,20 @@ def write_eval_data(root: str, seed: int) -> dict:
 
 
 def run_eval_cli(module, argv, label: str):
+    """``run_main`` of an eval CLI: (its printed output, wall seconds,
+    launches); it must exit 0 and launch none of the four kernels."""
+    code, text, secs, launches = run_main(module, argv, label)
+    if code != 0:
+        raise AssertionError(f"{label} exited {code}")
+    if any(launches.values()):
+        raise AssertionError(f"{label} launched {launches}")
+    return text, secs, launches
+
+
+def run_main(module, argv, label: str):
     """``module.main(argv)`` with the launch counts at 0 just before it:
-    (its printed output, wall seconds, launches). Its lines are printed
-    after it ends; it must launch none of the four kernels."""
+    (its exit code, its printed output, wall seconds, launches); its lines
+    are printed after it ends."""
     out = io.StringIO()
     zero_launches()
     t = time.perf_counter()
@@ -1247,15 +1177,10 @@ def run_eval_cli(module, argv, label: str):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = read_launches()
-    text = out.getvalue()
-    for line in text.splitlines():
+    for line in out.getvalue().splitlines():
         if line.strip():
             log(f"  [{label}] {line.strip()}")
-    if code != 0:
-        raise AssertionError(f"{label} exited {code}")
-    if any(launches.values()):
-        raise AssertionError(f"{label} launched {launches}")
-    return text, secs, launches
+    return code, out.getvalue(), secs, launches
 
 
 def printed(text: str, prefix: str) -> np.ndarray:
@@ -1661,8 +1586,8 @@ def graph_phase(seed: int, rng: np.random.RandomState, per_step: dict,
                 eager_device_ms: float) -> dict:
     """The train step as CUDA-graph replays of K steps: fp32 against eager
     steps (plain and ``remat``), launches over replays, and bf16 K =
-    CLI_FUSED_K's times and memory. Returns the replays' launches and the
-    checks' failures."""
+    CLI_FUSED_K's times and memory. Returns the replays' launches, the
+    checks' failures and the bf16 graph's device ms per step."""
     graphed, group, failures = graph_check(seed + 11, rng, remat=False)
     zero_launches()
     for _ in range(2):
@@ -1705,7 +1630,7 @@ def graph_phase(seed: int, rng: np.random.RandomState, per_step: dict,
         "step's device time is the train phase's graph of one step, without augmentation)")
     del step, nets
     torch.cuda.empty_cache()
-    return launches, failures
+    return launches, failures, times["graph_device_ms_per_step"]
 
 
 # The prepare phase: the user's path from raw recordings
@@ -2021,6 +1946,277 @@ def prepare_phase(seed: int, smi: str, per_step: dict, packed_times: dict) -> di
     return {"train_cli_jpeg": launches}
 
 
+# The checkpoints phase: seeded nets after a few bf16 Adam steps at full width,
+# written in both layouts; the JAX layout evaluated, restored, resumed by the
+# train CLI and converted.
+CKPT_DIR = os.path.join("build", "chip_smoke_checkpoints")
+CKPT_STEPS = 3
+
+
+def rss_mib() -> float:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**20
+
+
+def host_peak(fn):
+    """(fn's result, its seconds, the peak of the process's resident host
+    memory above its start while it ran, MiB; sampled every 2 ms)."""
+    start, peak, stop = rss_mib(), [0.0], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            peak[0] = max(peak[0], rss_mib())
+            stop.wait(0.002)
+
+    thread = threading.Thread(target=poll, daemon=True)
+    thread.start()
+    t = time.perf_counter()
+    try:
+        out = fn()
+    finally:
+        secs = time.perf_counter() - t
+        stop.set()
+        thread.join(timeout=10)
+    return out, secs, max(peak[0], rss_mib()) - start
+
+
+def train_state_tensors(state) -> dict:
+    """Every tensor a resume restores, by name, on the CPU: parameters,
+    BatchNorm statistics, Adam's moments and steps."""
+    out = {}
+    for key, net in (("disp", state.disp_net), ("pose", state.pose_net)):
+        for name, t in net.state_dict().items():
+            if not name.endswith("num_batches_tracked"):  # flax keeps no counter
+                out[f"{key}.{name}"] = t.detach().cpu()
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k in ("exp_avg", "exp_avg_sq", "step"):
+            out[f"adam.{i}.{k}"] = st[k].detach().cpu()
+    return out
+
+
+def check_resumed_cli(save: str, label: str, want_launches: dict, launches: dict) -> None:
+    """One resumed epoch: every kernel launched as expected, steps
+    CKPT_STEPS + 1 onwards, finite losses."""
+    steps = [int(r[0]) for r in read_rows(os.path.join(save, train_cli.TIME_LOG))]
+    rows = read_rows(os.path.join(save, "progress_log_full.csv"))
+    log(f"[{label}] launches {launches} (expected {want_launches}); steps "
+        f"{steps[0]}..{steps[-1]}; {len(rows)} loss rows, last {rows[-1]}")
+    if launches != want_launches:
+        raise AssertionError(f"{label}: launches {launches}, expected {want_launches}")
+    if steps != list(range(CKPT_STEPS + 1, CKPT_STEPS + CLI_EPOCH_SIZE + 1)):
+        raise AssertionError(f"{label}: resumed steps {steps}")
+    if len(rows) != CLI_EPOCH_SIZE or not all(np.isfinite(float(v)) for r in rows for v in r):
+        raise AssertionError(f"{label}: loss rows {rows}")
+
+
+def checkpoints_phase(seed: int, rng: np.random.RandomState, smi: str, per_step: dict,
+                      per_validation: dict) -> dict:
+    """The JAX package's checkpoint files on the card: seeded nets after
+    CKPT_STEPS bf16 Adam steps written as ``.msgpack`` and as ``.pth.tar``;
+    the eval CLIs on either file bit-equal; the train state restored from
+    either directory bit-equal; the train CLI resumed from the JAX
+    directory, eager and fused; the converter's round trip; times and
+    sizes."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(CKPT_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    disp_net, pose_net = make_nets(seed + 21)
+    state = create_train_state(disp_net, pose_net, make_optimizer(disp_net, pose_net))
+    step = make_train_step(disp_net, pose_net, state.optimizer, LossConfig(), device=DEVICE)
+    batch = make_batch(rng)
+    losses = [step(batch)["loss"].item() for _ in range(CKPT_STEPS)]
+    if not all(np.isfinite(losses)) or state.step != CKPT_STEPS:
+        raise AssertionError(f"checkpoint nets: losses {losses}, step {state.step}")
+    jax_dir, pth_dir = os.path.join(root, "jax"), os.path.join(root, "pth")
+    _, jax_write_s, _ = host_peak(lambda: save_jax_checkpoint(jax_dir, state, True, epoch=1))
+    _, pth_write_s, _ = host_peak(lambda: save_checkpoint(pth_dir, state, True, epoch=1))
+    sizes = {name: os.path.getsize(os.path.join(jax_dir, name)) / 1e6
+             for name in ("dispnet_checkpoint.msgpack", "exp_pose_checkpoint.msgpack",
+                          "train_state.msgpack")}
+    _, disp_read_s, disp_peak = host_peak(lambda: restore_disp_state(
+        os.path.join(jax_dir, "dispnet_checkpoint.msgpack")))
+    log(f"[checkpoints] {CKPT_STEPS} bf16 steps (losses {[round(x, 5) for x in losses]}); "
+        f"written in {jax_write_s:.3f} s (.msgpack, incl. train_state) and {pth_write_s:.3f} s "
+        f"(.pth.tar); sizes MB {sizes}; DispNet .msgpack read and mapped in {disp_read_s:.4f} s "
+        f"(host peak +{disp_peak:.1f} MiB) | {smi}")
+
+    # The eval CLIs on either file: bit-equal depths and trajectories.
+    data = write_eval_data(os.path.join(root, "eval"), seed)
+    outputs = {}
+    for kind, d, ext in (("msgpack", jax_dir, "msgpack"), ("pth", pth_dir, "pth.tar")):
+        out = os.path.join(root, f"out_{kind}")
+        disp_file = os.path.join(d, f"dispnet_checkpoint.{ext}")
+        pose_file = os.path.join(d, f"exp_pose_checkpoint.{ext}")
+        run_eval_cli(test_disp, ["--pretrained-dispnet", disp_file, "--resnet-layers", "18",
+                                 "--dataset-dir", data["depth"], "--output-dir",
+                                 os.path.join(out, "disp"), "--batch-size", "8"],
+                     f"test_disp {kind}")
+        run_eval_cli(test_vo, ["--pretrained-posenet", pose_file, "--sequence", "09",
+                               "--dataset-dir", os.path.join(data["odom"], "sequences"),
+                               "--output-dir", os.path.join(out, "vo"), "--batch-size", "16"],
+                     f"test_vo {kind}")
+        outputs[kind] = (np.load(os.path.join(out, "disp", "predictions.npy")),
+                         np.loadtxt(os.path.join(out, "vo", "09.txt")))
+    same_depth = np.array_equal(outputs["msgpack"][0], outputs["pth"][0])
+    same_traj = np.array_equal(outputs["msgpack"][1], outputs["pth"][1])
+    log(f"[checkpoints] test_disp depths {outputs['pth'][0].shape} and test_vo trajectory "
+        f"{outputs['pth'][1].shape} from .msgpack against .pth.tar: bit-equal {same_depth}, "
+        f"{same_traj}")
+    if not (same_depth and same_traj and np.isfinite(outputs["pth"][0]).all()):
+        raise AssertionError("the .msgpack and .pth.tar networks evaluate differently")
+
+    # The train state from either directory, into fresh nets on the card.
+    want = train_state_tensors(state)
+    restored, peaks = {}, {}
+    for kind, d in (("msgpack", jax_dir), ("pth", pth_dir)):
+        nets = make_nets(seed + 22)
+        for net in nets:
+            net.to(DEVICE)
+        fresh = create_train_state(*nets, make_optimizer(*nets))
+        _, secs, peak = host_peak(lambda: restore_train_state(d, fresh))
+        peaks[kind] = (secs, peak)
+        restored[kind] = train_state_tensors(fresh)
+        del fresh, nets
+    bad = [k for k in want if not (torch.equal(restored["msgpack"][k], want[k])
+                                   and torch.equal(restored["pth"][k], want[k]))]
+    log(f"[checkpoints] restore_train_state into fresh nets on the card: {len(want)} tensors "
+        f"(parameters, BatchNorm statistics, Adam moments and steps), unequal {bad[:5]}; "
+        f"seconds and host peak MiB: train_state.msgpack {peaks['msgpack'][0]:.3f} s "
+        f"+{peaks['msgpack'][1]:.1f} MiB, train_state.pth.tar {peaks['pth'][0]:.3f} s "
+        f"+{peaks['pth'][1]:.1f} MiB")
+    if bad or len(want) < 300:
+        raise AssertionError(f"restored train states differ: {bad[:10]} of {len(want)}")
+    del restored, want, step, state, disp_net, pose_net
+    torch.cuda.empty_cache()
+
+    # The train CLI resumed from the JAX directory, eager and fused.
+    write_packed_dataset(root, seed)
+    val_samples = sum(n - N for name, n in CLI_SCENES if name.startswith("val"))
+    val_batches = min(CLI_VAL_BATCHES, -(-val_samples // B))
+    want_launches = {k: CLI_EPOCH_SIZE * per_step[k] + val_batches * per_validation[k]
+                     for k in WRAPPERS}
+    by_path = {}
+    for label, extra in (("resume_jax", ()),
+                         ("resume_jax_fused", ("--fused-steps", str(CLI_FUSED_K)))):
+        zero_launches()
+        save = run_cli(root, label, seed, "--epochs", "1", "--resume", jax_dir, *extra)
+        by_path[label] = read_launches()
+        check_resumed_cli(save, label, want_launches, by_path[label])
+
+    # The converter, .pth.tar -> .msgpack -> .pth.tar.
+    for net, prefix in (("disp", "dispnet"), ("pose", "exp_pose")):
+        src = os.path.join(pth_dir, f"{prefix}_checkpoint.pth.tar")
+        mid, back = os.path.join(root, f"{prefix}.msgpack"), os.path.join(root, f"{prefix}.pth.tar")
+        for a, b in ((src, mid), (mid, back)):
+            if convert_checkpoint.main([a, b, "--net", net]) != 0:
+                raise AssertionError(f"convert_checkpoint {a} -> {b}")
+        ref, got = load_torch_state_dict(src), load_torch_state_dict(back)
+        same = set(ref) == set(got) and all(
+            torch.equal(got[k], v) for k, v in ref.items() if not k.endswith("num_batches_tracked"))
+        log(f"[checkpoints] convert_checkpoint {prefix} .pth.tar -> .msgpack -> .pth.tar: "
+            f"bit-equal {same} ({len(ref)} tensors; BatchNorm's counters, which flax does not "
+            "keep, come back as 0)")
+        if not same:
+            raise AssertionError(f"convert_checkpoint round trip of {prefix} differs")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[checkpoints] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return by_path
+
+
+TOOLS_DIR = os.path.join("build", "chip_smoke_tools")
+SYNTH_FRAMES, SYNTH_VAL_FRAMES = 24, 8
+# profile_step's device window against the graph's device time, relative: the
+# profiler's own cost per record (about 1,200 per step) lengthens the traced
+# replays, by 4.2% in a rehearsal on an H100.
+PROFILE_TOL = 0.10
+
+
+def tools_phase(seed: int, smi: str, per_step: dict, graph_device_ms: float) -> dict:
+    """The step's tools on the card: training from ``synthetic_scene``'s
+    JPEG tree, ``overfit_check`` at its defaults, ``mfu_report``,
+    ``profile_step`` against the graph's device time, ``ablate_step``."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(TOOLS_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    by_path = {}
+
+    scene = os.path.join(root, "synthetic")
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        synthetic_scene.make_dataset(scene, SYNTH_FRAMES, seed, SYNTH_VAL_FRAMES)
+    log(f"[tools] synthetic_scene: {SYNTH_FRAMES}+{SYNTH_VAL_FRAMES} frames at "
+        f"{synthetic_scene.W}x{synthetic_scene.H} in {time.perf_counter() - t:.2f} s")
+    # 22 snippets make 5 batches of 4: two epochs of 5 steps.
+    zero_launches()
+    save = run_cli(scene, "smoke_synthetic", seed, "--with-gt", "--epoch-size", "5",
+                   data_args=("--device-augment",))
+    by_path["synthetic_cli"] = read_launches()
+    rows = read_rows(os.path.join(save, "progress_log_full.csv"))
+    want = {k: 10 * per_step[k] for k in WRAPPERS}
+    log(f"[tools] train CLI from the synthetic JPEG tree, --with-gt on its .npy depth: "
+        f"launches {by_path['synthetic_cli']} (expected {want}), {len(rows)} loss rows, "
+        f"last {rows[-1]}")
+    if by_path["synthetic_cli"] != want or len(rows) != 10 or not all(
+            np.isfinite(float(v)) for r in rows for v in r):
+        raise AssertionError("train CLI from the synthetic scene")
+
+    code, text, secs, by_path["overfit_check"] = run_main(overfit_check, ["--device", "cuda"],
+                                                          "overfit_check")
+    ratio, corr = printed(text, "photo loss:")[-1], printed(text, "depth correlation")[0]
+    ms = printed(text, "ms per step after the first:")[0]
+    want = {k: 300 * per_step[k] + (k == "warp_sample") for k in WRAPPERS}
+    log(f"[tools] overfit_check (300 steps, 128x256, eager bf16) | {smi}: loss ratio {ratio}%, "
+        f"depth correlation {corr}, {ms} ms per step, {secs:.1f} s; launches "
+        f"{by_path['overfit_check']} (expected {want})")
+    if code != 0 or "OVERFIT CHECK: PASS" not in text or by_path["overfit_check"] != want:
+        raise AssertionError("overfit_check did not pass")
+
+    zero_launches()
+    mfu = mfu_report.report(B, CLI_FUSED_K, iters=5)
+    by_path["mfu_report"] = read_launches()
+    want = {k: (3 + 5) * CLI_FUSED_K * per_step[k] for k in WRAPPERS}
+    log(f"[tools] mfu_report B{B} K={CLI_FUSED_K}: {mfu}; launches {by_path['mfu_report']}")
+    if by_path["mfu_report"] != want or not 0 < mfu["mfu"] < 1:
+        raise AssertionError(f"mfu_report: launches expected {want}")
+    torch.cuda.empty_cache()
+
+    zero_launches()
+    prof = profile_step.profile(B, CLI_FUSED_K, steps=3, top=15, log=log)
+    by_path["profile_step"] = read_launches()
+    busy, window = sum(prof["groups"].values()), prof["window_ms"]
+    log(f"[tools] profile_step K={CLI_FUSED_K} | {smi}: groups sum {busy:.4f} ms per step, idle "
+        f"between the replays' records {window - busy:.4f} ms, together the device's window "
+        f"{window:.4f} ms against the graph phase's {graph_device_ms:.4f} ms of device time "
+        f"(CUDA events; tol {PROFILE_TOL:.0%}); {prof['kernels_per_step']:.0f} records per step; "
+        f"complete {prof['complete']}; launches {by_path['profile_step']}")
+    # The profiler drops device records now and then (a window whose records
+    # fall short is reported as such, its busy time a lower bound).
+    if not (abs(window - graph_device_ms) <= PROFILE_TOL * graph_device_ms and busy <= window):
+        raise AssertionError(f"profile_step: busy {busy:.4f} and window {window:.4f} ms "
+                             f"against {graph_device_ms:.4f}")
+    if min(by_path["profile_step"].values()) < 1:
+        raise AssertionError("profile_step: a kernel did not launch")
+    torch.cuda.empty_cache()
+
+    n, reps = 3, 2
+    code, text, secs, by_path["ablate_step"] = run_main(
+        ablate_step, ["--configs", "full,no_ssim,convs_only", "--n", str(n), "--reps", str(reps)],
+        "ablate_step")
+    times = {name: printed(text, name)[0] for name in ("full", "no_ssim", "convs_only")}
+    # Each variant takes K (16) steps per call: 3 warm calls and n * reps timed.
+    steps = ablate_step.FUSED * (3 + n * reps)
+    want = {k: steps * per_step[k] * (2 if k.startswith("warp") else 1) for k in WRAPPERS}
+    log(f"[tools] ablate_step (K={ablate_step.FUSED}, device ms per step) | {smi}: {times}, "
+        f"{secs:.1f} s; launches {by_path['ablate_step']} (expected {want}: full and no_ssim "
+        "warp, full alone runs SSIM, convs_only none)")
+    if code != 0 or "FAILED" in text or by_path["ablate_step"] != want:
+        raise AssertionError("ablate_step failed")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[tools] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return by_path
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -2052,8 +2248,8 @@ def main(argv=None) -> int:
     remat_phase(args.seed, rng)
     log("[graph] the train step as CUDA-graph replays of K steps against eager steps")
     # The graph checks' failures fail the run after the phases that follow.
-    by_path["train_step_graphed"], failures = graph_phase(args.seed, rng, by_path["train_step"],
-                                                          step_device_ms)
+    by_path["train_step_graphed"], failures, graph_device_ms = graph_phase(
+        args.seed, rng, by_path["train_step"], step_device_ms)
     for s in range(args.graph_seeds):
         for remat in (False, True):
             found = graph_check(args.seed + 100 + s, rng, remat)[2]
@@ -2070,6 +2266,12 @@ def main(argv=None) -> int:
     log("[prepare] raw KITTI, KITTI odometry and Cityscapes to the training layout, and "
         "the train CLI from the JPEG tree")
     by_path.update(prepare_phase(args.seed, smi, by_path["train_step"], packed_times))
+    log("[checkpoints] the JAX package's .msgpack files: written, evaluated, restored, resumed "
+        "and converted at full width")
+    by_path.update(checkpoints_phase(args.seed, rng, smi, by_path["train_step"],
+                                     by_path["validation_step"]))
+    log("[tools] synthetic_scene, overfit_check, mfu_report, profile_step and ablate_step")
+    by_path.update(tools_phase(args.seed, smi, by_path["train_step"], graph_device_ms))
     for k in kernels:
         k["launches"] = by_path["train_cli_jpeg"][k["name"]]
         k["launches_per_train_step"] = by_path["train_step"][k["name"]]

@@ -20,7 +20,9 @@ mode, 3-term loss, backward, Adam from ``make_optimizer``; ``remat``, a
 device ``augment_fn``, and ``fused_steps``: K steps per call, one CUDA-graph
 replay on the card), ``make_eval_step`` (photometric validation),
 ``make_eval_depth_step`` (ground-truth depth metrics), ``make_inference_fn``
-and the checkpoints (``training/checkpoint.py``). Host data (``data/``: the
+and the checkpoints (``training/checkpoint.py``: the reference's
+``.pth.tar`` files, and the JAX package's ``.msgpack`` files through the
+port's own msgpack codec, ``utils/msgpack.py``). Host data (``data/``: the
 dataset crawlers, the packed uint8 format, the batch loader, the host
 transforms, the device augmentation) reaches the card through
 ``parallel.device_prefetch``.

@@ -9,9 +9,9 @@ to shrink, ``INTER_LINEAR`` to grow) in torch, on the device the frames go
 to. Frames are batched into fixed shapes, the last batch padded by
 repeating its last frame.
 
-Checkpoints are the reference's ``.pth``/``.pth.tar``/``.pt`` files; a flax
-``.msgpack`` is converted first with ``tools/convert_checkpoint.py``, where
-JAX is installed.
+Checkpoints are the reference's ``.pth``/``.pth.tar``/``.pt`` files or the
+JAX package's flax ``.msgpack`` files, read by the port's own msgpack codec
+and mapped onto the port's parameter names (``models/convert.py``).
 """
 
 from __future__ import annotations
@@ -24,7 +24,9 @@ import torch
 
 from . import disable_tf32, resolve_device
 from .data.image_io import read_png, resize_like_cv2, write_png
-from .models.convert import load_torch_state_dict
+from .models.convert import (
+    disp_from_jax, load_torch_state_dict, pose_from_jax, read_jax_variables,
+)
 from .ops.geometry import pose_vec2mat
 from .training.step import conv_autocast
 
@@ -90,22 +92,32 @@ def batched(paths: Sequence[str], batch_size: int, height: int, width: int,
         yield torch.stack([load_normalized(p, height, width, device) for p in chunk]), n_valid
 
 
-def _read_state(path: str) -> Dict[str, torch.Tensor]:
-    if path.endswith((".pth", ".pth.tar", ".pt")):
+TORCH_SUFFIXES = (".pth", ".pth.tar", ".pt")
+
+
+def _read_state(path: str, from_jax, num_layers: int, net: str) -> Dict[str, torch.Tensor]:
+    if path.endswith(TORCH_SUFFIXES):
         return load_torch_state_dict(path)
-    raise ValueError(
-        f"{path}: the port reads .pth, .pth.tar and .pt checkpoints; convert a flax "
-        ".msgpack one with tools/convert_checkpoint.py where JAX is installed")
+    variables = read_jax_variables(path)
+    try:
+        return from_jax(variables, num_layers)
+    except (KeyError, TypeError) as exc:
+        raise ValueError(f"{path}: not the flax variables of a ResNet-{num_layers} {net} "
+                         f"(no {exc})") from None
 
 
-def restore_disp_state(path: str) -> Dict[str, torch.Tensor]:
-    """A DispNet state dict from a reference-layout checkpoint."""
-    return _read_state(path)
+def restore_disp_state(path: str, num_layers: int = 18) -> Dict[str, torch.Tensor]:
+    """A DispNet state dict from a reference-layout ``.pth``/``.pth.tar``/
+    ``.pt`` checkpoint or a JAX ``.msgpack`` of a ResNet-``num_layers``
+    DispNet's ``{params, batch_stats}``."""
+    return _read_state(path, disp_from_jax, num_layers, "DispNet")
 
 
-def restore_pose_state(path: str) -> Dict[str, torch.Tensor]:
-    """A PoseNet state dict from a reference-layout checkpoint."""
-    return _read_state(path)
+def restore_pose_state(path: str, num_layers: int = 18) -> Dict[str, torch.Tensor]:
+    """A PoseNet state dict (ResNet-18 as both trainers build it, unless
+    ``num_layers`` says otherwise) from a reference-layout checkpoint or a
+    JAX ``.msgpack``."""
+    return _read_state(path, pose_from_jax, num_layers, "PoseNet")
 
 
 def make_pose_inference_fn(

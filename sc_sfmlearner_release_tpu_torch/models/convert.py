@@ -9,6 +9,12 @@ mechanically:
   * BatchNorm ``scale/bias`` (params) and ``mean/var`` (batch_stats)
     <-> ``weight/bias/running_mean/running_var``.
 
+A tree without ``batch_stats`` (Adam's ``mu``/``nu`` have the params'
+structure) maps to and from a state dict of the parameters alone.
+:func:`read_jax_variables`/:func:`write_jax_variables` read and write the
+JAX package's ``.msgpack`` files through the port's own codec
+(``utils/msgpack.py``).
+
 This is the port's own copy of the mapping in the JAX package's
 ``models/convert.py``; it imports nothing from that package. Reference
 checkpoints (``{'epoch', 'state_dict'}`` ``.pth.tar``) load straight into
@@ -18,11 +24,13 @@ ImageNet ResNets into their encoders (:func:`graft_imagenet_encoder`).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import msgpack
 from .resnet import BOTTLENECK, STAGE_BLOCKS
 
 Tree = Dict[str, Any]
@@ -36,14 +44,21 @@ POSE_DECODER_ORDER = ["squeeze", "pose_0", "pose_1", "pose_2"]
 ENCODER_PREFIX = "encoder.encoder."
 
 
-def _to_torch_kernel(k) -> np.ndarray:
+def _permuted(a, dims) -> torch.Tensor:
+    """``a`` transposed to ``dims``, a new contiguous tensor: torch's copy,
+    several times numpy's for these 4-D transposes."""
+    a = np.asarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).permute(*dims).contiguous()
+
+
+def _to_torch_kernel(k) -> torch.Tensor:
     """flax ``[kh, kw, I, O]`` -> torch ``[O, I, kh, kw]``."""
-    return np.ascontiguousarray(np.transpose(np.asarray(k), (3, 2, 0, 1)))
+    return _permuted(k, (3, 2, 0, 1))
 
 
 def _to_flax_kernel(w) -> np.ndarray:
     """torch ``[O, I, kh, kw]`` -> flax ``[kh, kw, I, O]``."""
-    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
+    return _permuted(w, (2, 3, 1, 0)).numpy()
 
 
 def _encoder_blocks(num_layers: int):
@@ -53,39 +68,57 @@ def _encoder_blocks(num_layers: int):
             yield f"{ENCODER_PREFIX}layer{stage}.{i}", f"layer{stage}_{i}"
 
 
-def _bn_from_flax(params: Mapping, stats: Mapping, tkey: str, out: Dict[str, np.ndarray]):
+def _bn_from_flax(params: Mapping, stats: Optional[Mapping], tkey: str,
+                  out: Dict[str, np.ndarray]):
     out[f"{tkey}.weight"] = np.asarray(params["bn"]["scale"])
     out[f"{tkey}.bias"] = np.asarray(params["bn"]["bias"])
+    if stats is None:
+        return
     out[f"{tkey}.running_mean"] = np.asarray(stats["bn"]["mean"])
     out[f"{tkey}.running_var"] = np.asarray(stats["bn"]["var"])
     out[f"{tkey}.num_batches_tracked"] = np.asarray(0, np.int64)
 
 
-def _encoder_from_flax(params: Mapping, stats: Mapping, num_layers: int) -> Dict[str, np.ndarray]:
+def _encoder_from_flax(params: Mapping, stats: Optional[Mapping],
+                       num_layers: int) -> Dict[str, Any]:
     p = ENCODER_PREFIX
-    out: Dict[str, np.ndarray] = {f"{p}conv1.weight": _to_torch_kernel(params["conv1"]["kernel"])}
-    _bn_from_flax(params["bn1"], stats["bn1"], f"{p}bn1", out)
+
+    def sub(*path):  # the statistics' node, None without statistics
+        node = stats
+        for k in path:
+            node = None if node is None else node[k]
+        return node
+
+    out: Dict[str, Any] = {f"{p}conv1.weight": _to_torch_kernel(params["conv1"]["kernel"])}
+    _bn_from_flax(params["bn1"], sub("bn1"), f"{p}bn1", out)
     n_convs = 3 if BOTTLENECK[num_layers] else 2
     for tb, fb in _encoder_blocks(num_layers):
         for j in range(1, n_convs + 1):
             out[f"{tb}.conv{j}.weight"] = _to_torch_kernel(params[fb][f"conv{j}"]["kernel"])
-            _bn_from_flax(params[fb][f"bn{j}"], stats[fb][f"bn{j}"], f"{tb}.bn{j}", out)
+            _bn_from_flax(params[fb][f"bn{j}"], sub(fb, f"bn{j}"), f"{tb}.bn{j}", out)
         if "downsample_conv" in params[fb]:
             out[f"{tb}.downsample.0.weight"] = _to_torch_kernel(
                 params[fb]["downsample_conv"]["kernel"])
-            _bn_from_flax(params[fb]["downsample_bn"], stats[fb]["downsample_bn"],
+            _bn_from_flax(params[fb]["downsample_bn"], sub(fb, "downsample_bn"),
                           f"{tb}.downsample.1", out)
     return out
 
 
-def _tensors(sd: Mapping[str, np.ndarray]) -> StateDict:
-    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+def _tensors(sd: Mapping[str, Any]) -> StateDict:
+    """Tensors of their own: the transposed kernels are new tensors
+    already; arrays (views into a file's buffer, say) are copied."""
+    return {k: v if isinstance(v, torch.Tensor) else torch.from_numpy(np.array(v))
+            for k, v in sd.items()}
+
+
+def _stats(variables: Mapping) -> Optional[Mapping]:
+    return variables["batch_stats"]["encoder"] if "batch_stats" in variables else None
 
 
 def disp_from_jax(variables: Mapping, num_layers: int) -> StateDict:
-    """JAX ``DispNet`` variables -> the port's ``DispNet`` state dict."""
-    out = _encoder_from_flax(variables["params"]["encoder"],
-                             variables["batch_stats"]["encoder"], num_layers)
+    """JAX ``DispNet`` variables -> the port's ``DispNet`` state dict (its
+    parameters alone when ``variables`` has no ``batch_stats``)."""
+    out = _encoder_from_flax(variables["params"]["encoder"], _stats(variables), num_layers)
     dec = variables["params"]["decoder"]
     for idx, name in enumerate(DISP_DECODER_ORDER):
         t = f"decoder.decoder.{idx}.conv.conv" if name.startswith("upconv") \
@@ -96,9 +129,9 @@ def disp_from_jax(variables: Mapping, num_layers: int) -> StateDict:
 
 
 def pose_from_jax(variables: Mapping, num_layers: int = 18) -> StateDict:
-    """JAX ``PoseNet`` variables -> the port's ``PoseNet`` state dict."""
-    out = _encoder_from_flax(variables["params"]["encoder"],
-                             variables["batch_stats"]["encoder"], num_layers)
+    """JAX ``PoseNet`` variables -> the port's ``PoseNet`` state dict (its
+    parameters alone when ``variables`` has no ``batch_stats``)."""
+    out = _encoder_from_flax(variables["params"]["encoder"], _stats(variables), num_layers)
     dec = variables["params"]["decoder"]
     for idx, name in enumerate(POSE_DECODER_ORDER):
         out[f"decoder.net.{idx}.weight"] = _to_torch_kernel(dec[name]["kernel"])
@@ -130,6 +163,8 @@ def _numpy(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 def _bn_to_flax(sd, tkey: str, params: Tree, stats: Tree, fpath: Tuple[str, ...]) -> None:
     _set(params, fpath + ("bn", "scale"), sd[f"{tkey}.weight"])
     _set(params, fpath + ("bn", "bias"), sd[f"{tkey}.bias"])
+    if f"{tkey}.running_mean" not in sd:  # parameters alone
+        return
     _set(stats, fpath + ("bn", "mean"), sd[f"{tkey}.running_mean"])
     _set(stats, fpath + ("bn", "var"), sd[f"{tkey}.running_var"])
 
@@ -153,7 +188,8 @@ def _encoder_to_flax(sd, num_layers: int) -> Tuple[Tree, Tree]:
 
 
 def disp_to_jax(state_dict: Mapping, num_layers: int) -> Tree:
-    """The port's ``DispNet`` state dict -> JAX ``DispNet`` variables."""
+    """The port's ``DispNet`` state dict -> JAX ``DispNet`` variables
+    (``params`` alone when the state dict holds no running statistics)."""
     sd = _numpy(state_dict)
     enc_params, enc_stats = _encoder_to_flax(sd, num_layers)
     dec: Tree = {}
@@ -162,20 +198,26 @@ def disp_to_jax(state_dict: Mapping, num_layers: int) -> Tree:
             else f"decoder.decoder.{idx}.conv"
         _set(dec, (name, "conv", "kernel"), _to_flax_kernel(sd[f"{t}.weight"]))
         _set(dec, (name, "conv", "bias"), sd[f"{t}.bias"])
-    return {"params": {"encoder": enc_params, "decoder": dec},
-            "batch_stats": {"encoder": enc_stats}}
+    return _variables(enc_params, enc_stats, dec)
+
+
+def _variables(enc_params: Tree, enc_stats: Tree, dec: Tree) -> Tree:
+    out = {"params": {"encoder": enc_params, "decoder": dec}}
+    if enc_stats:
+        out["batch_stats"] = {"encoder": enc_stats}
+    return out
 
 
 def pose_to_jax(state_dict: Mapping, num_layers: int = 18) -> Tree:
-    """The port's ``PoseNet`` state dict -> JAX ``PoseNet`` variables."""
+    """The port's ``PoseNet`` state dict -> JAX ``PoseNet`` variables
+    (``params`` alone when the state dict holds no running statistics)."""
     sd = _numpy(state_dict)
     enc_params, enc_stats = _encoder_to_flax(sd, num_layers)
     dec: Tree = {}
     for idx, name in enumerate(POSE_DECODER_ORDER):
         _set(dec, (name, "kernel"), _to_flax_kernel(sd[f"decoder.net.{idx}.weight"]))
         _set(dec, (name, "bias"), sd[f"decoder.net.{idx}.bias"])
-    return {"params": {"encoder": enc_params, "decoder": dec},
-            "batch_stats": {"encoder": enc_stats}}
+    return _variables(enc_params, enc_stats, dec)
 
 
 def to_jax_variables(
@@ -193,6 +235,47 @@ def gradient_state_dict(module: torch.nn.Module) -> StateDict:
     for name, p in module.named_parameters():
         sd[name] = p.grad if p.grad is not None else torch.zeros_like(p)
     return sd
+
+
+def encoder_layers(net: torch.nn.Module) -> int:
+    """The ResNet depth (18, 34 or 50) of a ``DispNet``'s or ``PoseNet``'s
+    encoder, from its blocks."""
+    enc = net.encoder.encoder
+    layout = (tuple(len(getattr(enc, f"layer{i}")) for i in range(1, 5)),
+              hasattr(enc.layer1[0], "conv3"))
+    for n in STAGE_BLOCKS:
+        if (STAGE_BLOCKS[n], BOTTLENECK[n]) == layout:
+            return n
+    raise ValueError(f"no ResNet has blocks and bottleneck {layout}")
+
+
+def _sorted_tree(tree):
+    """``tree`` with every dict's keys sorted, as a JAX ``tree_map`` leaves
+    them (the JAX package's checkpoints are written after one)."""
+    if isinstance(tree, Mapping):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def read_jax_variables(path: str) -> Tree:
+    """A flax ``.msgpack`` file's tree (``flax.serialization.msgpack_restore``),
+    its arrays numpy views into one buffer read from the file."""
+    buf = np.empty(os.path.getsize(path), np.uint8)  # writable, not zero-filled
+    with open(path, "rb") as f:
+        if f.readinto(memoryview(buf)) != buf.size:
+            raise OSError(f"{path}: short read")
+    return msgpack.unpackb(buf)
+
+
+def write_jax_variables(path: str, variables: Mapping) -> None:
+    """Write ``variables`` (a tree of dicts and numpy arrays) as the
+    JAX package's ``save_checkpoint`` writes its trees: the top level in
+    the order given (a ``TrainState``'s fields, or ``params`` then
+    ``batch_stats``), every dict below it sorted as a JAX ``tree_map``
+    leaves it, through ``flax.serialization.to_bytes``'s encoding. JAX's
+    ``from_bytes`` and ``msgpack_restore`` read it."""
+    with open(path, "wb") as f:
+        f.writelines(msgpack.pack_parts({k: _sorted_tree(v) for k, v in variables.items()}))
 
 
 def load_torch_state_dict(path: str) -> StateDict:

@@ -36,7 +36,7 @@ def build_parser():
     p.add_argument("--output-disp", action="store_true", help="save disparity img")
     p.add_argument("--output-depth", action="store_true", help="save depth img")
     p.add_argument("--pretrained", required=True, type=str,
-                   help="pretrained DispNet path (.pth.tar, .pth or .pt)")
+                   help="pretrained DispNet path (.msgpack or torch .pth.tar)")
     p.add_argument("--img-height", default=256, type=int)
     p.add_argument("--img-width", default=832, type=int)
     p.add_argument("--no-resize", action="store_true")
@@ -58,7 +58,7 @@ def main(argv=None) -> int:
     device = cli_device(args.device)
 
     disp_net = DispNet(args.resnet_layers)
-    disp_net.load_state_dict(restore_disp_state(args.pretrained))
+    disp_net.load_state_dict(restore_disp_state(args.pretrained, args.resnet_layers))
     infer = make_inference_fn(disp_net, device, args.precision)
 
     if args.dataset_list is not None:

@@ -36,7 +36,7 @@ def build_parser():
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p.add_argument("--pretrained-dispnet", required=True, type=str,
-                   help="pretrained DispNet path (.pth.tar, .pth or .pt)")
+                   help="pretrained DispNet path (.msgpack or torch .pth.tar)")
     p.add_argument("--img-height", default=256, type=int)
     p.add_argument("--img-width", default=832, type=int)
     p.add_argument("--min-depth", default=1e-3, type=float)
@@ -66,7 +66,7 @@ def main(argv=None) -> int:
     device = cli_device(args.device)
 
     disp_net = DispNet(args.resnet_layers)
-    disp_net.load_state_dict(restore_disp_state(args.pretrained_dispnet))
+    disp_net.load_state_dict(restore_disp_state(args.pretrained_dispnet, args.resnet_layers))
     infer = make_inference_fn(disp_net, device, args.precision)
 
     test_files = list_files(args.dataset_dir, args.dataset_list)

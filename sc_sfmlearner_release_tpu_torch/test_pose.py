@@ -37,7 +37,7 @@ def build_parser():
         formatter_class=argparse.ArgumentDefaultsHelpFormatter,
     )
     p.add_argument("pretrained_posenet", type=str,
-                   help="pretrained PoseNet path (.pth.tar, .pth or .pt)")
+                   help="pretrained PoseNet path (.msgpack or torch .pth.tar)")
     p.add_argument("--img-height", default=256, type=int)
     p.add_argument("--img-width", default=832, type=int)
     p.add_argument("--no-resize", action="store_true")

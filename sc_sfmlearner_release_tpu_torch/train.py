@@ -7,8 +7,11 @@ flags with the same defaults, the same experiment layout
 (``checkpoints/<name>/<timestamp>/``), the same tab-separated logs
 (``progress_log_summary.csv``, ``progress_log_full.csv``) and optional
 TensorBoard, checkpoints in the reference's ``.pth.tar`` layout, and an
-exact ``--resume``. It trains on one CUDA card (``--device cuda``, the
-default; it raises without one) or on the CPU (``--device cpu``).
+exact ``--resume``. ``--pretrained-disp/-pose`` also take the JAX trainer's
+``.msgpack`` files and ``--resume`` its save directories
+(``train_state.msgpack``), through the port's own msgpack codec. It
+trains on one CUDA card (``--device cuda``, the default; it raises without
+one) or on the CPU (``--device cpu``).
 
 Not here: ``--sampler`` and ``--spatial-shards`` (the TPU band sampler and
 its mesh) and ``--distributed`` (multi-GPU is not ported); argparse rejects
@@ -62,6 +65,7 @@ from . import cli_device
 from .data import (BatchLoader, PackedSequenceSet, PairSet, SequenceSet, ValidationSet,
                    transforms)
 from .data.device_augment import AugmentConfig, make_device_augment
+from .inference import restore_disp_state, restore_pose_state
 from .models import DispNet, PoseNet
 from .models.convert import graft_imagenet_encoder, load_torch_state_dict
 from .parallel import device_prefetch
@@ -120,11 +124,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "encoder init")
     p.add_argument("--dataset", choices=["kitti", "nyu"], default="kitti")
     p.add_argument("--pretrained-disp", default=None,
-                   help="path to pretrained DispNet (reference .pth.tar)")
+                   help="path to pretrained DispNet (.msgpack or torch .pth.tar)")
     p.add_argument("--pretrained-pose", default=None,
-                   help="path to pretrained PoseNet (reference .pth.tar)")
+                   help="path to pretrained PoseNet (.msgpack or torch .pth.tar)")
     p.add_argument("--resume", default=None,
-                   help="checkpoint dir to resume full train state from")
+                   help="checkpoint dir to resume full train state from (the port's "
+                   "train_state.pth.tar or the JAX trainer's train_state.msgpack)")
     p.add_argument("--name", required=True)
     p.add_argument("--padding-mode", choices=["zeros", "border"], default="zeros")
     p.add_argument("--device-augment", action="store_true",
@@ -216,13 +221,13 @@ def _missing_imagenet(name: str) -> SystemExit:
     )
 
 
-def _load_net(net, path: str) -> None:
-    """Reference-layout ``.pth.tar`` weights into ``net``."""
-    if not path.endswith((".pth", ".pth.tar", ".pt")):
-        raise SystemExit(
-            f"{path}: the port loads reference .pth.tar checkpoints; convert "
-            "a JAX .msgpack with tools/convert_checkpoint.py first")
-    net.load_state_dict(load_torch_state_dict(path))
+def _load_net(net, restore, path: str) -> None:
+    """Reference-layout ``.pth.tar`` or JAX ``.msgpack`` weights into ``net``."""
+    try:
+        state_dict = restore(path)
+    except ValueError as exc:
+        raise SystemExit(f"cannot load pretrained weights: {exc}") from exc
+    net.load_state_dict(state_dict)
 
 
 def _datasets(args):
@@ -287,10 +292,11 @@ def _networks(args):
             graft_imagenet_encoder(pose_net, load_torch_state_dict(pose_pth), 18, 2)
     if args.pretrained_disp:
         print("=> using pre-trained weights for DispNet")
-        _load_net(disp_net, args.pretrained_disp)
+        _load_net(disp_net, lambda path: restore_disp_state(path, args.resnet_layers),
+                  args.pretrained_disp)
     if args.pretrained_pose:
         print("=> using pre-trained weights for PoseNet")
-        _load_net(pose_net, args.pretrained_pose)
+        _load_net(pose_net, restore_pose_state, args.pretrained_pose)
     return disp_net, pose_net
 
 

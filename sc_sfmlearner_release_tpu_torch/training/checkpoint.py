@@ -14,6 +14,13 @@ With ``full_state`` also ``train_state.pth.tar`` (both networks, the Adam
 state, the generator and the step: :meth:`TrainState.state_dict`), which
 makes a resume exact; ``meta.json`` holds the step and the epoch. Every file
 loads with ``torch.load(..., weights_only=True)``.
+
+The JAX package's files are read and written too, through the port's own
+msgpack codec (no flax, no ``msgpack`` package): :func:`save_jax_checkpoint`
+writes ``dispnet_checkpoint.msgpack``, ``exp_pose_checkpoint.msgpack``
+(flax ``{params, batch_stats}`` trees), their ``*_model_best`` copies and
+``train_state.msgpack`` (JAX's ``TrainState``), and
+:func:`restore_train_state` resumes from such a directory as from its own.
 """
 
 from __future__ import annotations
@@ -21,15 +28,22 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Optional
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
+from ..models.convert import (
+    disp_from_jax, disp_to_jax, encoder_layers, pose_from_jax, pose_to_jax,
+    read_jax_variables, write_jax_variables,
+)
 from .state import TrainState
 
 DISP_PREFIX = "dispnet"
 POSE_PREFIX = "exp_pose"
 TRAIN_STATE = "train_state.pth.tar"
+JAX_TRAIN_STATE = "train_state.msgpack"
+ADAM_KEYS = ("count", "mu", "nu")
 
 
 def _cpu(tree):
@@ -60,14 +74,130 @@ def save_checkpoint(
             shutil.copyfile(path, os.path.join(save_path, f"{prefix}_model_best.pth.tar"))
     if full_state:
         torch.save(_cpu(state.state_dict()), os.path.join(save_path, TRAIN_STATE))
+    _write_meta(save_path, state.step, epoch)
+
+
+def _write_meta(save_path: str, step: int, epoch: Optional[int]) -> None:
     with open(os.path.join(save_path, "meta.json"), "w") as f:
-        json.dump({"step": state.step, "epoch": epoch}, f)
+        json.dump({"step": step, "epoch": epoch}, f)
 
 
 def restore_train_state(path: str, state: TrainState) -> TrainState:
-    """Load a full train state (``path``: a save directory or its
-    ``train_state.pth.tar``) into ``state``, in place, and return it."""
+    """Load a full train state into ``state``, in place, and return it.
+    ``path`` is a save directory (its ``train_state.pth.tar``, else the JAX
+    package's ``train_state.msgpack``) or either file."""
     if os.path.isdir(path):
-        path = os.path.join(path, TRAIN_STATE)
-    state.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+        own = os.path.join(path, TRAIN_STATE)
+        path = own if os.path.exists(own) else os.path.join(path, JAX_TRAIN_STATE)
+    if path.endswith(".msgpack"):
+        load_jax_train_state(read_jax_variables(path), state)
+    else:
+        state.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
     return state
+
+
+def _adam_node(opt_state: dict, weight_decay: float) -> dict:
+    """optax's Adam state in ``opt_state``: ``{"0": {count, mu, nu}, "1": {}}``
+    for ``optax.adam``, or behind ``add_decayed_weights`` (``{"0": {}, "1":
+    ...}``) when the JAX trainer had ``--weight-decay``; the chain must
+    agree with the optimizer's ``weight_decay``."""
+    chained = opt_state.get("0") == {} and isinstance(opt_state.get("1"), dict)
+    node = (opt_state["1"] if chained else opt_state).get("0")
+    if not isinstance(node, dict) or set(node) != set(ADAM_KEYS):
+        raise ValueError(f"opt_state holds no optax Adam state: keys {sorted(opt_state)}")
+    if chained != bool(weight_decay):
+        raise ValueError(
+            f"the JAX optimizer {'has' if chained else 'has no'} add_decayed_weights, but the "
+            f"port's Adam has weight_decay {weight_decay}: give the same --weight-decay")
+    return node
+
+
+def load_jax_train_state(tree: dict, state: TrainState) -> None:
+    """A JAX ``TrainState`` tree (``train_state.msgpack``: step, params,
+    batch_stats, opt_state, rng) into ``state``, in place: the parameters
+    and BatchNorm statistics into both networks, Adam's ``mu``/``nu`` into
+    torch Adam's ``exp_avg``/``exp_avg_sq`` (the optimizer's parameters are
+    DispNet's, then PoseNet's, as ``make_optimizer`` chains them), and
+    ``count`` into every parameter's ``step`` (on the card when the
+    optimizer is ``capturable``). BatchNorm's ``num_batches_tracked``,
+    which flax does not keep, is set to 0.
+
+    JAX's ``rng`` is not carried: the port draws its augmentation from
+    (seed, step), not from a key in the state. The restored optimizer
+    must be at the file's ``step``, as :meth:`TrainState.load_state_dict`
+    requires of the port's own files."""
+    nets = (("disp", state.disp_net, disp_from_jax), ("pose", state.pose_net, pose_from_jax))
+    for key, net, from_jax in nets:
+        variables = {"params": tree["params"][key], "batch_stats": tree["batch_stats"][key]}
+        net.load_state_dict(from_jax(variables, encoder_layers(net)))
+    groups = state.optimizer.param_groups
+    adam = _adam_node(tree["opt_state"], groups[0]["weight_decay"])
+    count = int(np.asarray(adam["count"]))
+    moments = {}
+    for key, net, from_jax in nets:
+        mu = from_jax({"params": adam["mu"][key]}, encoder_layers(net))
+        nu = from_jax({"params": adam["nu"][key]}, encoder_layers(net))
+        for name, p in net.named_parameters():
+            moments[id(p)] = (mu[name], nu[name])
+    own = state.optimizer.state_dict()
+    index = {id(p): i for i, p in enumerate(p for g in groups for p in g["params"])}
+    if set(index) != set(moments):
+        raise ValueError("the optimizer's parameters are not DispNet's and PoseNet's")
+    saved = {index[k]: {"step": torch.tensor(float(count)), "exp_avg": m, "exp_avg_sq": v}
+             for k, (m, v) in moments.items()} if count else {}
+    state.optimizer.load_state_dict({"state": saved, "param_groups": own["param_groups"]})
+    step = int(np.asarray(tree["step"]))
+    if state.step != step:
+        raise ValueError(f"restored optimizer is at step {state.step}, the checkpoint at {step}")
+
+
+def jax_train_state(state: TrainState) -> Dict:
+    """``state`` as the JAX package's ``TrainState`` tree, the one its
+    ``save_checkpoint`` writes: ``step`` (int32), ``params`` and
+    ``batch_stats`` of both networks, ``opt_state`` (optax's Adam state,
+    behind ``add_decayed_weights`` when the optimizer has a weight decay;
+    zeros before the first step) and ``rng``: ``jax.random.PRNGKey`` of the
+    state generator's seed, which no JAX draw continues from."""
+    step = state.step
+    params, stats, mu, nu = {}, {}, {}, {}
+    exp = state.optimizer.state
+    for key, net, to_jax in (("disp", state.disp_net, disp_to_jax),
+                             ("pose", state.pose_net, pose_to_jax)):
+        variables = to_jax(net.state_dict(), encoder_layers(net))
+        params[key], stats[key] = variables["params"], variables["batch_stats"]
+        named = list(net.named_parameters())
+        for out, moment in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            sd = {n: exp[p][moment] if p in exp else torch.zeros_like(p) for n, p in named}
+            out[key] = to_jax(sd, encoder_layers(net))["params"]
+    adam = {"count": np.asarray(step, np.int32), "mu": mu, "nu": nu}
+    opt_state = {"0": adam, "1": {}}
+    if state.optimizer.param_groups[0]["weight_decay"]:
+        opt_state = {"0": {}, "1": opt_state}
+    seed = state.generator.initial_seed() & 0xFFFFFFFF
+    return {"step": np.asarray(step, np.int32), "params": params, "batch_stats": stats,
+            "opt_state": opt_state, "rng": np.asarray([0, seed], np.uint32)}
+
+
+def save_jax_checkpoint(
+    save_path: str,
+    state: TrainState,
+    is_best: bool,
+    epoch: Optional[int] = None,
+    full_state: bool = True,
+) -> None:
+    """The JAX package's ``save_checkpoint``: both networks'
+    ``{params, batch_stats}`` ``.msgpack`` files (and the best copies when
+    ``is_best``); ``full_state`` also writes ``train_state.msgpack``
+    (:func:`jax_train_state`); ``meta.json`` holds the step and the epoch.
+    The JAX package's ``restore_train_state`` and ``load_model_variables``
+    read them."""
+    os.makedirs(save_path, exist_ok=True)
+    for prefix, net, to_jax in ((DISP_PREFIX, state.disp_net, disp_to_jax),
+                                (POSE_PREFIX, state.pose_net, pose_to_jax)):
+        path = os.path.join(save_path, f"{prefix}_checkpoint.msgpack")
+        write_jax_variables(path, to_jax(net.state_dict(), encoder_layers(net)))
+        if is_best:
+            shutil.copyfile(path, os.path.join(save_path, f"{prefix}_model_best.msgpack"))
+    if full_state:
+        write_jax_variables(os.path.join(save_path, JAX_TRAIN_STATE), jax_train_state(state))
+    _write_meta(save_path, state.step, epoch)

@@ -9,12 +9,15 @@ The counterpart of the JAX package's ``utils/profiling.py``:
 * ``enable_nan_debugging()``: ``torch.autograd.set_detect_anomaly(True)``,
   the reference's anomaly detection, opt-in (the reference leaves it on
   globally, its train.py:67, a large slowdown).
+* ``card_line()``: the card's name and power limit as ``nvidia-smi`` gives
+  them, which every time measured on the card is printed beside.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import time
 from typing import Iterator, Optional
 
@@ -38,6 +41,15 @@ def trace(log_dir: Optional[str]) -> Iterator[None]:
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
+
+
+def card_line() -> str:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` of
+    the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def enable_nan_debugging() -> None:

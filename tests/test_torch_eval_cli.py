@@ -20,7 +20,9 @@ Measured on the CPU: 2.34e-7, 2.32e-7 (ResNet-50 2.34e-7, 2.33e-7);
 
 Also: each network CLI exits clearly with its default ``--device cuda``
 when there is no card, every CLI answers ``--help``, and a ``.msgpack``
-checkpoint is refused with the converter's name.
+that is not a flax tree, or not the asked network's, is refused with the
+reason (``tests/test_torch_checkpoint_msgpack.py`` reads the JAX
+package's ``.msgpack`` files).
 """
 
 import glob
@@ -40,7 +42,9 @@ from sc_sfmlearner_release_tpu_torch import (
     eval_depth, eval_odom, inference, run_inference, test_disp, test_pose, test_vo,
 )
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
-from sc_sfmlearner_release_tpu_torch.models.convert import save_torch_checkpoint
+from sc_sfmlearner_release_tpu_torch.models.convert import (
+    load_torch_state_dict, pose_to_jax, save_torch_checkpoint, write_jax_variables,
+)
 from test_cli import REPO, H, W, _run, image_dir, odom_root  # noqa: F401 (fixtures)
 
 CPU = ["--device", "cpu", "--precision", "fp32"]
@@ -325,7 +329,13 @@ def test_cli_help(name):
     assert res.stdout.startswith("usage:")
 
 
-def test_msgpack_checkpoints_are_refused():
+def test_msgpack_checkpoints_are_refused(pose_pth, tmp_path):
+    garbage = tmp_path / "dispnet_checkpoint.msgpack"
+    garbage.write_bytes(b"\x81\xa6params\xc1")
     for restore in (inference.restore_disp_state, inference.restore_pose_state):
-        with pytest.raises(ValueError, match="tools/convert_checkpoint.py"):
-            restore("dispnet_checkpoint.msgpack")
+        with pytest.raises(ValueError, match="unknown type byte 0xc1 at byte 8"):
+            restore(str(garbage))
+    pose_mp = str(tmp_path / "exp_pose_checkpoint.msgpack")
+    write_jax_variables(pose_mp, pose_to_jax(load_torch_state_dict(pose_pth)))
+    with pytest.raises(ValueError, match="not the flax variables of a ResNet-18 DispNet"):
+        inference.restore_disp_state(pose_mp)

@@ -35,7 +35,7 @@ ssim_mod = importlib.import_module("sc_sfmlearner_release_tpu_torch.ops.ssim")
 warp_mod = importlib.import_module("sc_sfmlearner_release_tpu_torch.ops.warp")
 ROOT = Path(__file__).resolve().parent.parent
 PORT_DIR = ROOT / "sc_sfmlearner_release_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "sc_sfmlearner_release_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "msgpack", "cv2", "sc_sfmlearner_release_tpu"}
 
 
 def _imported_roots(path: Path):

@@ -151,8 +151,13 @@ def test_pretrained_nets_from_reference_checkpoints(tree, workdir, packed_run, m
 
 
 def test_msgpack_weights_are_refused(tree, workdir, monkeypatch):
+    # JAX .msgpack weights load (tests/test_torch_checkpoint_msgpack.py);
+    # a file that is not a flax tree is refused with the reason.
     monkeypatch.chdir(workdir)
-    with pytest.raises(SystemExit, match="tools/convert_checkpoint.py"):
+    with open("dispnet_checkpoint.msgpack", "wb") as f:
+        f.write(b"\x81\xa6params\xc1")
+    with pytest.raises(SystemExit, match="cannot load pretrained weights: msgpack: unknown "
+                                         "type byte 0xc1 at byte 8"):
         cli.main([tree, "--name", "msgpack", "--with-pretrain", "0",
                   "--pretrained-disp", "dispnet_checkpoint.msgpack"] + BASE)
 
