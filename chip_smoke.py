@@ -133,7 +133,30 @@ the run (non-zero exit) when it fails:
    time between the replays' records) must be within 10% of phase 7's
    graph device time; ``ablate_step`` on ``full``, ``no_ssim`` and
    ``convs_only``.
-13. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
+13. This slice's main path, data parallelism over processes
+   (``[distributed]``, run after phase 8): (1) the train CLI with
+   ``--distributed`` at world size 1 under NCCL, called in this process
+   with torchrun's environment set, on phase 6's packed dataset (written
+   again from ``--seed``) for 2 epochs of 10 steps, eager and with
+   ``--fused-steps 5``, each with the launch counts at 0 (every kernel in
+   every step), one experiment directory each, and its first step's
+   losses against phase 6's first step. Then, in a world-size-1 NCCL group
+   of this process: ``BatchNorm2d``'s global path (PyTorch's SyncBatchNorm
+   kernels) against ``F.batch_norm``
+   at the encoder's first and last BatchNorm shapes, both memory formats:
+   output, input, weight and bias gradients, running statistics; the
+   step's device time in the group (a CUDA-graph replay)
+   and the gradient all-reduce's alone. (2) Two ranks
+   (``distributed.run_processes``): NCCL with one card each where there
+   are 2 or more cards, else gloo on CUDA tensors with both ranks on card
+   0 (NCCL refuses two ranks on one device); the fp32 step (TF32 off) at
+   B2 N2 128x416, one sample per rank, against one process on the global
+   batch here: losses, every gradient and every BatchNorm statistic; both
+   ranks' parameters bit-identical after the step; over NCCL also
+   ``fused_steps=2`` (the all-reduces captured in the CUDA graph) for 3
+   calls. (3) ``graft_entry.dryrun_multigpu`` over the machine's cards (two
+   ranks sharing the card where there is one). (4) The phase's wall time.
+14. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
    CLI run's of phase 10, with every path's in ``launches_by_path``), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -147,9 +170,12 @@ import contextlib
 import copy
 import csv
 import ctypes
+import faulthandler
 import glob
+import hashlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -167,6 +193,7 @@ from sc_sfmlearner_release_tpu_torch import (
     disable_tf32, eval_depth, eval_odom, prepare_train_data, run_inference, test_disp, test_pose,
     test_vo,
 )
+from sc_sfmlearner_release_tpu_torch import graft_entry
 from sc_sfmlearner_release_tpu_torch import train as train_cli
 from sc_sfmlearner_release_tpu_torch.data import (
     BatchLoader, PackedSequenceSet, ValidationSet, device_augment, jpeg_io,
@@ -175,6 +202,7 @@ from sc_sfmlearner_release_tpu_torch.data import packed as packed_module
 from sc_sfmlearner_release_tpu_torch.data.image_io import FILTERS, read_png, write_png
 from sc_sfmlearner_release_tpu_torch.data.prepare.common import imresize
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
+from sc_sfmlearner_release_tpu_torch.models.resnet import BatchNorm2d
 from sc_sfmlearner_release_tpu_torch.models.convert import (
     load_torch_state_dict, save_torch_checkpoint,
 )
@@ -186,7 +214,7 @@ from sc_sfmlearner_release_tpu_torch.ops.ssim import (
 from sc_sfmlearner_release_tpu_torch.ops.warp import (
     warp_sample, warp_sample_bwd, warp_sample_plain,
 )
-from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch
+from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch, distributed
 from sc_sfmlearner_release_tpu_torch.inference import restore_disp_state
 from sc_sfmlearner_release_tpu_torch.tools import (
     ablate_step, convert_checkpoint, make_smoke_kitti, mfu_report, overfit_check, profile_step,
@@ -1028,7 +1056,7 @@ def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
         f"{launches} (each train step launches {per_step})")
     if launches != want or min(per_step.values()) < 1:
         raise AssertionError(f"CLI launches {launches}, expected {want}")
-    check_cli_outputs(save, "cli")
+    first_row = [float(v) for v in check_cli_outputs(save, "cli")[0]]
 
     # The saved train state, restored on the card into fresh networks.
     disp_net, pose_net = make_nets(seed + 7)
@@ -1052,7 +1080,8 @@ def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
     t = time.perf_counter()
     n_loaded = sum(1 for _ in loader)
     loader_ms = (time.perf_counter() - t) * 1e3 / n_loaded
-    times = {**cli_times(save, "cli", 1), "loader_alone_ms_per_batch": loader_ms}
+    times = {**cli_times(save, "cli", 1), "loader_alone_ms_per_batch": loader_ms,
+             "cli_first_step_losses": first_row}
     log(f"[cli] times (host clock; the CLI syncs only at --print-freq and the epoch's end): "
         f"{times}")
 
@@ -1087,7 +1116,344 @@ def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
         if not summary["device_kernels"]:
             log(f"[profile-dir] the {label} trace holds no device kernel records")
     shutil.rmtree(root, ignore_errors=True)
-    return {"train_cli": launches, "train_cli_fused": fused_launches}, times
+    return {"train_cli": launches, "train_cli_fused": fused_launches}, {**times, **fused_times}
+
+
+# The distributed phase: data parallelism over processes (parallel/distributed.py).
+DIST_DIR = os.path.join("build", "chip_smoke_distributed")
+# The --distributed CLI's first step at world size 1 against phase 6's: the
+# same batch, draws, weights and bf16 convolutions, and a forward only (no
+# atomics yet). What differs is BatchNorm's statistics, taken from the
+# processes' means and means of squares (PyTorch's SyncBatchNorm kernels)
+# instead of by cuDNN's kernel: a rounding of a statistic
+# moves some bf16 inputs of the next convolution by one bf16 ulp (2^-8
+# relative), which the loss's means over ~10^6 pixels average down to well
+# under 1e-3 of each loss term.
+DIST_FIRST_STEP_RTOL = 1e-3
+DIST_FUSED_K, DIST_FUSED_CALLS = 2, 3
+DIST_WORKER_TIMEOUT = 300   # s, the processes of a multi-process run together
+# A rank still running after this long prints every thread's stack and exits
+# (a collective that waits for a peer never returns by itself).
+DIST_STACK_DUMP_S = 240
+# The two ranks' BatchNorm statistics after the step against one process's,
+# as the CPU test of the 2-rank step holds them.
+DIST_BN_RTOL, DIST_BN_ATOL = 1e-4, 1e-5
+# BatchNorm2d's global path (PyTorch's SyncBatchNorm kernels) at world size
+# 1 against F.batch_norm: within this share of each tensor's largest value,
+# as the CPU test of the global BatchNorm (the statistics come from means
+# and means of squares, rounded otherwise than F.batch_norm's).
+BN_CHECK_TOL = 1e-5
+# DispNet's encoder's first and last BatchNorm at the main path's width.
+BN_CHECK_SHAPES = ((B, 64, H // 2, W // 2), (B, 512, H // 32, W // 32))
+
+
+@contextlib.contextmanager
+def torchrun_env(rank: int, world: int, local_rank: int, port: int):
+    """torchrun's environment for one process, put back after."""
+    env = {"RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": str(local_rank),
+           "MASTER_ADDR": "localhost", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def params_digest(*nets) -> str:
+    """SHA-256 of every parameter's bytes, in order."""
+    flat = torch.cat([p.detach().reshape(-1) for net in nets for p in net.parameters()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def two_rank_inputs(seed: int):
+    """The fp32 check's nets (heads spread) and global batch at CHECK_SHAPE."""
+    b, n, h, w = CHECK_SHAPE
+    rng = np.random.RandomState(seed)
+    k = kitti_intrinsics(b)
+    k[:, :2] *= np.array([[w / W], [h / H]], np.float32)
+    batch = {"tgt": rng.rand(b, h, w, 3).astype(np.float32),
+             "refs": rng.rand(b, n, h, w, 3).astype(np.float32), "intrinsics": k}
+    disp_net, pose_net = make_nets(seed)
+    spread_heads(disp_net, pose_net, seed)
+    return disp_net, pose_net, batch
+
+
+def bn_buffers(*nets) -> dict:
+    """Every buffer (BatchNorm's running statistics and counts), on the CPU."""
+    return {f"{i}.{k}": v.detach().cpu().clone() for i, net in enumerate(nets)
+            for k, v in net.named_buffers()}
+
+
+def two_rank_rank(device: torch.device, seed: int) -> dict:
+    """One of the two ranks (``distributed.run_processes``): the fp32 step
+    on its half of the global batch, and over NCCL the graphed step."""
+    faulthandler.dump_traceback_later(DIST_STACK_DUMP_S, exit=True)
+    disable_tf32()
+    backend = torch.distributed.get_backend()
+    rank = distributed.process_index()
+    t0 = time.perf_counter()
+    stage = lambda name: log(f"rank {rank} {name} at {time.perf_counter() - t0:.1f} s")
+    result = {"route": f"{backend}, {torch.cuda.device_count()} card(s)",
+              "device": str(device)}
+    disp_net, pose_net, batch = two_rank_inputs(seed)
+    rows = distributed.local_rows(CHECK_SHAPE[0])
+    local = {k: v[rows] for k, v in batch.items()}
+    optimizer = make_optimizer(disp_net, pose_net)
+    step = make_train_step(disp_net, pose_net, optimizer, device=device, precision="fp32")
+    distributed.replicate(disp_net, pose_net, optimizer)  # a broadcast on the card
+    zero_launches()
+    result["metrics"] = {k: v.item() for k, v in step(local).items()}
+    result["launches"] = read_launches()
+    stage("fp32 step")
+    result["digest"] = params_digest(disp_net, pose_net)
+    result["buffers"] = bn_buffers(disp_net, pose_net)
+    if rank == 0:
+        result["grads"] = grads_by_name(disp_net, pose_net)
+    # The gradient all-reduce alone (the 26.8 M fp32 gradients and 4
+    # metrics in one collective): NCCL's device time per call from a
+    # CUDA-graph replay; gloo's, which stages through the host, from CUDA
+    # events around eager calls.
+    params = [p for net in (disp_net, pose_net) for p in net.parameters()]
+    metrics = {k: torch.zeros((), device=device) for k in METRICS}
+    allreduce = lambda: distributed.sum_grads_and_metrics(params, metrics)
+    result["grad_allreduce_ms"] = (graph_ms(allreduce, 10) if backend == "nccl"
+                                   else cuda_ms(allreduce, 10))
+    stage("gradient all-reduce timed")
+    if backend == "nccl":
+        result["fused"] = two_rank_graphed(seed + 1, device, local, stage)
+    faulthandler.cancel_dump_traceback_later()
+    return result
+
+
+def two_rank_graphed(seed: int, device: torch.device, local: dict, stage) -> dict:
+    """``fused_steps=DIST_FUSED_K`` for DIST_FUSED_CALLS calls (a warm-up, a
+    capture and replay, a replay): the all-reduces inside the CUDA graph.
+    The graph goes with this function: NCCL's communicator is destroyed
+    only once no graph holds its collectives."""
+    nets = make_nets(seed)
+    graphed = make_train_step(*nets, make_optimizer(*nets, capturable=True), device=device,
+                              precision="fp32", fused_steps=DIST_FUSED_K)
+    stacked = {k: torch.from_numpy(np.stack([v] * DIST_FUSED_K)) for k, v in local.items()}
+    zero_launches()
+    losses = []
+    for call in range(DIST_FUSED_CALLS):
+        losses.append(graphed(stacked)["loss"].tolist())
+        stage(f"graphed call {call}")
+    return {"losses": losses, "launches": read_launches(), "digest": params_digest(*nets)}
+
+
+def two_rank_phase(seed: int, per_step: dict) -> dict:
+    """Two ranks on the card(s) against one process on the global batch."""
+    # The reference first: one process, the global batch, this card.
+    disp_net, pose_net, batch = two_rank_inputs(seed)
+    step = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+                           device=DEVICE, precision="fp32")
+    want = {k: v.item() for k, v in step(batch).items()}
+    want_grads = grads_by_name(disp_net, pose_net)
+    want_buffers = bn_buffers(disp_net, pose_net)
+    del step, disp_net, pose_net
+    torch.cuda.empty_cache()
+    results = distributed.run_processes(two_rank_rank, 2, DEVICE, args=(seed,),
+                                        timeout=DIST_WORKER_TIMEOUT)
+    log(f"[distributed] two ranks: {results[0]['route']} on {results[0]['device']} and "
+        f"{results[1]['device']}; gradient all-reduce {results[0]['grad_allreduce_ms']:.4f} ms "
+        f"per step (10 calls; NCCL: a CUDA-graph replay, gloo: CUDA events)")
+    for r, res in enumerate(results):
+        if res["launches"] != per_step:
+            raise AssertionError(f"rank {r} launches {res['launches']}, expected {per_step}")
+        for key in METRICS:
+            rel = abs(res["metrics"][key] - want[key]) / max(abs(want[key]), 1e-12)
+            log(f"  rank {r} fp32 {key}: {res['metrics'][key]:.7f} one process "
+                f"{want[key]:.7f} rel {rel:.2e} (tol {STEP_RTOL:.0e})")
+            if not rel <= STEP_RTOL:
+                raise AssertionError(f"rank {r} {key}: {res['metrics'][key]} vs {want[key]}")
+    if results[0]["digest"] != results[1]["digest"]:
+        raise AssertionError("the two ranks' parameters differ after the step")
+    for r, res in enumerate(results):
+        if set(res["buffers"]) != set(want_buffers) or len(want_buffers) < 100:
+            raise AssertionError(f"rank {r}: buffers of {len(res['buffers'])} and "
+                                 f"{len(want_buffers)} tensors")
+        # |err| over its bound, abs DIST_BN_ATOL + rel DIST_BN_RTOL, per buffer.
+        ratios = {k: ((res["buffers"][k].double() - v.double()).abs()
+                      / (DIST_BN_ATOL + DIST_BN_RTOL * v.double().abs())).max().item()
+                  for k, v in want_buffers.items()}
+        worst = max(ratios, key=ratios.get)
+        if not ratios[worst] <= 1.0:
+            raise AssertionError(f"rank {r} BatchNorm buffer {worst}: {ratios[worst]:.3f} "
+                                 f"times its bound (rel {DIST_BN_RTOL}, abs {DIST_BN_ATOL})")
+        log(f"  rank {r} BatchNorm statistics ({len(want_buffers)} buffers) against one "
+            f"process: worst |err| / (abs {DIST_BN_ATOL:.0e} + rel {DIST_BN_RTOL:.0e}) "
+            f"{ratios[worst]:.3f} ({worst}; must be <= 1)")
+    got = results[0]["grads"]
+    if set(got) != set(want_grads) or len(got) < 100:
+        raise AssertionError(f"gradients of {len(got)} and {len(want_grads)} tensors")
+    rels = {k: ((got[k] - g).norm() / g.norm().clamp_min(1e-30)).item()
+            for k, g in want_grads.items()}
+    for part, tol in GRAD_RTOL.items():
+        mine = {k: v for k, v in rels.items() if (".encoder." in k) == (part == "encoders")}
+        top = max(mine, key=mine.get)
+        log(f"  two ranks' gradients (summed) against one process, {part}: {len(mine)} "
+            f"tensors, median rel L2 {np.median(list(mine.values())):.2e}, worst "
+            f"{mine[top]:.2e} ({top}) (tol {tol:.1e})")
+        if not mine[top] <= tol:
+            raise AssertionError(f"two-rank gradient {top}: rel L2 {mine[top]:.2e} > {tol}")
+    paths = {"two_ranks_rank0": results[0]["launches"]}
+    if "fused" in results[0]:
+        fused = [res["fused"] for res in results]
+        want_fused = {k: DIST_FUSED_CALLS * DIST_FUSED_K * n for k, n in per_step.items()}
+        for r, f in enumerate(fused):
+            log(f"  rank {r} fused_steps={DIST_FUSED_K}, {DIST_FUSED_CALLS} calls (warm-up, "
+                f"capture and replay, replay): losses {f['losses']}, launches {f['launches']}")
+            if f["launches"] != want_fused or not np.all(np.isfinite(f["losses"])):
+                raise AssertionError(f"rank {r} graphed steps: {f}")
+        if fused[0]["digest"] != fused[1]["digest"]:
+            raise AssertionError("the ranks' parameters differ after the graphed steps: the "
+                                 "all-reduce did not run inside the graph")
+        paths["two_ranks_fused_rank0"] = fused[0]["launches"]
+    else:
+        log("[distributed] one card: gloo, eager only (NCCL refuses two ranks on one device)")
+    return paths
+
+
+def global_bn_check(seed: int) -> None:
+    """``BatchNorm2d``'s global path on the card (``_GlobalBatchNorm``'s
+    CUDA branch) in a world-size-1 group against ``F.batch_norm`` with the
+    port's rule for the running statistics (momentum 0.1 towards the biased
+    variance): output, input, weight and bias gradients and both running
+    statistics, at BN_CHECK_SHAPES in both memory formats."""
+    if not distributed.is_distributed():
+        raise AssertionError("the BatchNorm check needs the world-size-1 group")
+    g = torch.Generator().manual_seed(seed)
+    for shape in BN_CHECK_SHAPES:
+        c, n = shape[1], math.prod(shape) // shape[1]
+        for fmt in (torch.contiguous_format, torch.channels_last):
+            x = (torch.randn(shape, generator=g) * 2 + 0.5).to(DEVICE).contiguous(
+                memory_format=fmt)
+            dy = torch.randn(shape, generator=g).to(DEVICE).contiguous(memory_format=fmt)
+            weight, bias = torch.rand(c, generator=g) + 0.5, torch.randn(c, generator=g)
+            mean0, var0 = torch.randn(c, generator=g), torch.rand(c, generator=g) + 0.5
+            bn = BatchNorm2d(c).to(DEVICE).train()
+            with torch.no_grad():
+                for buf, v in ((bn.weight, weight), (bn.bias, bias), (bn.running_mean, mean0),
+                               (bn.running_var, var0)):
+                    buf.copy_(v)
+            xg = x.clone().requires_grad_()
+            out = bn(xg)
+            out.backward(dy)
+            xr = x.clone().requires_grad_()
+            wr, br = weight.to(DEVICE).requires_grad_(), bias.to(DEVICE).requires_grad_()
+            mean, var = torch.zeros(c, device=DEVICE), torch.zeros(c, device=DEVICE)
+            ref = F.batch_norm(xr, mean, var, wr, br, True, 1.0, bn.eps)
+            ref.backward(dy)
+            errs = {}
+            for name, got, want in (
+                    ("output", out, ref), ("input grad", xg.grad, xr.grad),
+                    ("weight grad", bn.weight.grad, wr.grad),
+                    ("bias grad", bn.bias.grad, br.grad),
+                    ("running_mean", bn.running_mean, mean0.to(DEVICE).lerp(mean, bn.momentum)),
+                    ("running_var", bn.running_var,
+                     var0.to(DEVICE).lerp(var * ((n - 1) / n), bn.momentum))):
+                errs[name] = ((got - want).abs().max() / want.abs().max()).item()
+                if not errs[name] <= BN_CHECK_TOL:
+                    raise AssertionError(f"global BatchNorm {shape} {fmt} {name}: "
+                                         f"{errs[name]:.2e} of max > {BN_CHECK_TOL}")
+            log(f"[distributed] global BatchNorm {list(shape)} "
+                f"{'channels_last' if fmt == torch.channels_last else 'contiguous'} against "
+                f"F.batch_norm, max |err| / max |ref| (tol {BN_CHECK_TOL:.0e}): "
+                + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+
+def distributed_phase(seed: int, smi: str, per_step: dict, per_validation: dict,
+                      packed_times: dict, step_device_ms: float) -> dict:
+    """(1) the --distributed CLI at world size 1 under NCCL, eager and fused;
+    the step's device time in the group; (2) two ranks on the card(s); (3)
+    the multi-device dry run; (4) the wall time."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(os.path.join(DIST_DIR, "trainer"))
+    shutil.rmtree(root, ignore_errors=True)
+    write_packed_dataset(root, seed)
+    val_samples = sum(n - N for name, n in CLI_SCENES if name.startswith("val"))
+    val_batches = CLI_EPOCHS * min(CLI_VAL_BATCHES, -(-val_samples // B))
+    want = {k: CLI_STEPS * per_step[k] + val_batches * per_validation[k] for k in WRAPPERS}
+    by_path, times = {}, {}
+    first_want = packed_times["cli_first_step_losses"]
+    for path, name, extra in (("train_cli_distributed", "smoke_dist", ()),
+                              ("train_cli_distributed_fused", "smoke_dist_fused",
+                               ("--fused-steps", str(CLI_FUSED_K)))):
+        torch.cuda.reset_peak_memory_stats()
+        with torchrun_env(0, 1, 0, distributed.free_port()):
+            zero_launches()
+            save = run_cli(root, name, seed, "--distributed", *extra)
+            by_path[path] = read_launches()
+        if distributed.is_distributed():
+            raise AssertionError("the CLI left its process group initialised")
+        log(f"[distributed] {path}: launches {by_path[path]} (expected {want})")
+        if by_path[path] != want:
+            raise AssertionError(f"{path} launches {by_path[path]}, expected {want}")
+        first = [float(v) for v in check_cli_outputs(save, path)[0]]
+        rels = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(first, first_want)]
+        log(f"[distributed] {path} first step's losses {first} against phase 6's "
+            f"{first_want}: max rel {max(rels):.2e} (tol {DIST_FIRST_STEP_RTOL:.0e})")
+        if not max(rels) <= DIST_FIRST_STEP_RTOL:
+            raise AssertionError(f"{path}: first step's losses {first} vs {first_want}")
+        skip = 1 if not extra else 2 * CLI_FUSED_K
+        times[path] = {**cli_times(save, path, skip),
+                       "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+        log(f"[distributed] {path} times per optimizer step (host clock) | {smi}: "
+            f"{times[path]}")
+    log(f"[distributed] phase 6's CLI in this run, eager: median "
+        f"{packed_times['cli_step_ms_median_after_1']:.2f} ms, epoch-2 mean "
+        f"{packed_times['cli_step_ms_mean_epoch_2']:.2f} ms; fused: epoch-2 mean "
+        f"{packed_times['cli_fused_step_ms_mean_epoch_2']:.2f} ms | {smi}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # The step's device time inside a world-size-1 NCCL group: BatchNorm's
+    # global path, the loss's mask-sum collectives and the gradient all-reduce.
+    with torchrun_env(0, 1, 0, distributed.free_port()):
+        distributed.init_distributed("cuda")
+        try:
+            global_bn_check(seed)
+            nets = make_nets(seed)
+            adam = torch.optim.Adam([q for net in nets for q in net.parameters()], lr=1e-4,
+                                    eps=1e-8, capturable=True)
+            graph_step = make_train_step(*nets, adam, LossConfig(), device=DEVICE)
+            on_card = {k: torch.from_numpy(v).to(DEVICE)
+                       for k, v in make_batch(np.random.RandomState(seed)).items()}
+            dist_device_ms = graph_ms(lambda: graph_step(on_card), 3)
+            params = [p for net in nets for p in net.parameters()]
+            metrics = {k: torch.zeros((), device=DEVICE) for k in METRICS}
+            allreduce_ms = graph_ms(lambda: distributed.sum_grads_and_metrics(params, metrics),
+                                    20)
+            del graph_step, adam, nets, params
+        finally:
+            distributed.leave()
+    times["device"] = {"step_device_ms_world_1": dist_device_ms,
+                       "step_device_ms_no_group": step_device_ms,
+                       "extra_device_ms": dist_device_ms - step_device_ms,
+                       "grad_allreduce_ms_world_1": allreduce_ms}
+    log(f"[distributed] bf16 train step B{B} N{N} {W}x{H}, device time (CUDA-graph replay) "
+        f"in a world-size-1 NCCL group | {smi}: {times['device']}")
+    torch.cuda.empty_cache()
+
+    log("[distributed] two ranks against one process on the global batch")
+    by_path.update(two_rank_phase(seed + 2, per_step))
+
+    # The dry run over every card (two ranks sharing the one card where
+    # there is one).
+    n = max(2, torch.cuda.device_count())
+    t = time.perf_counter()
+    loss = graft_entry.dryrun_multigpu(n)
+    log(f"[distributed] graft_entry.dryrun_multigpu({n}) in {time.perf_counter() - t:.1f} s: "
+        f"loss {loss}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"dryrun_multigpu({n}): loss {loss}")
+    log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return by_path
 
 
 # The eval phase: the evaluation and inference CLIs at full width (ResNet-18,
@@ -2260,6 +2626,11 @@ def main(argv=None) -> int:
     cli_paths, packed_times = cli_phase(args.seed, by_path["train_step"],
                                         by_path["validation_step"])
     by_path.update(cli_paths)
+    log("[distributed] the train CLI with --distributed at world size 1, two ranks, and the "
+        "multi-device dry run")
+    by_path.update(distributed_phase(args.seed, smi, by_path["train_step"],
+                                     by_path["validation_step"], packed_times,
+                                     step_device_ms))
     staging_phase(args.seed, rng)
     log("[eval] the evaluation and inference CLIs at full width from PNGs on disk")
     by_path.update(eval_phase(args.seed, smi))

@@ -29,7 +29,10 @@ scale ``floor(W*sx)/W``, the scale the resampled image has.
 Randomness: one draw per sample from an explicit CPU ``torch.Generator``.
 The train step seeds it from (seed, step) (``step_generator``), so the
 stream is deterministic for a given seed and step on any device, and a
-resumed run continues it. It is not JAX's ``jax.random`` stream.
+resumed run continues it. It is not JAX's ``jax.random`` stream. Under a
+process group (``parallel.distributed``) every process draws for the global
+batch and applies its own rows of the draws, so N processes augment as one
+process on the global batch does.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..parallel import distributed
 from .transforms import IMAGENET_MEAN, IMAGENET_STD
 
 Batch = Dict[str, torch.Tensor]
@@ -75,6 +79,14 @@ def sample_draws(generator: torch.Generator, batch_size: int, cfg: AugmentConfig
     if not cfg.scale_crop:
         scales = torch.ones_like(scales)
     return {"flip": flip, "scales": scales, "offsets01": offsets}
+
+
+def local_draws(generator: torch.Generator, batch_size: int, cfg: AugmentConfig) -> Batch:
+    """This process's rows of the draws for the global batch of which its
+    ``batch_size`` rows are a slice (all of them without a process group)."""
+    global_batch = batch_size * distributed.process_count()
+    rows = distributed.local_rows(global_batch)
+    return {k: v[rows] for k, v in sample_draws(generator, global_batch, cfg).items()}
 
 
 @functools.lru_cache(maxsize=16)
@@ -219,14 +231,14 @@ class DeviceAugment:
 
     def __call__(self, generator: torch.Generator, batch: Batch) -> Batch:
         batch = _to_unit_float(batch)
-        draws = sample_draws(generator, batch["tgt"].shape[0], self.cfg)
+        draws = local_draws(generator, batch["tgt"].shape[0], self.cfg)
         return augment_with_draws(batch, draws, self.cfg)
 
     def host_map(self, generator: torch.Generator, batch_size: int, h: int,
                  w: int) -> torch.Tensor:
         """The draws of ``generator`` resolved into the packed affine map,
         ``[batch_size, w + h + 5]`` fp32 on the CPU."""
-        return _affine_packed(sample_draws(generator, batch_size, self.cfg), h, w)
+        return _affine_packed(local_draws(generator, batch_size, self.cfg), h, w)
 
     def apply_map(self, batch: Batch, packed: torch.Tensor) -> Batch:
         """Convert, resample, normalize and update the intrinsics of

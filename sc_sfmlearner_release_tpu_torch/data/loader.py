@@ -1,9 +1,10 @@
 """Host-side prefetching batch loader.
 
-The port's own copy of the JAX package's ``data/loader.py``, with one
-addition: ``pin_memory=True`` stacks every batch straight into page-locked
-host tensors on the loader's thread, so that ``parallel.device_prefetch``
-can copy them to the card without blocking the step's thread.
+The port's own copy of the JAX package's ``data/loader.py`` (with its
+per-process slices of the global batch), with one addition:
+``pin_memory=True`` stacks every batch straight into page-locked host
+tensors on the loader's thread, so that ``parallel.device_prefetch`` can
+copy them to the card without blocking the step's thread.
 
 Replaces ``torch.utils.data.DataLoader(num_workers=4, pin_memory=True)``
 (reference: the reference's train.py:142-147) with a thread-pool pipeline:
@@ -48,15 +49,19 @@ class BatchLoader:
 
     Args:
       dataset: object with ``__len__`` and ``load(index, rng) -> dict``.
-      batch_size: batch size.
+      batch_size: global batch size; must divide by ``process_count``.
       shuffle: reshuffle each epoch (seeded).
       num_workers: decode/augment thread count.
       drop_last: drop the trailing partial batch (training). When False, the
         final batch is padded by repeating the last sample and the true count
-        is reported in ``batch["_n_valid"]`` (validation).
+        of the global batch is reported in ``batch["_n_valid"]`` (validation).
       seed: base seed; epoch ``e`` uses ``seed + e``.
       pin_memory: yield page-locked torch tensors (needs a CUDA build)
         instead of numpy arrays; ``_n_valid`` stays a numpy scalar.
+      process_index / process_count: data parallelism over processes (the
+        train CLI's ``--distributed``): each process loads only its
+        contiguous ``batch_size / process_count`` slice of every global
+        batch, rows ``process_index * b ... (process_index + 1) * b - 1``.
     """
 
     def __init__(
@@ -68,7 +73,12 @@ class BatchLoader:
         drop_last: bool = True,
         seed: int = 0,
         pin_memory: bool = False,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if batch_size % process_count:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by {process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -76,6 +86,8 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self.pin_memory = pin_memory
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -109,6 +121,8 @@ class BatchLoader:
             )
             return self.dataset.load(int(i), rng)
 
+        local_bs = bs // self.process_count
+
         def producer() -> None:
             try:
                 produce()
@@ -128,6 +142,9 @@ class BatchLoader:
                         chunk = np.concatenate(
                             [chunk, np.repeat(chunk[-1:], bs - n_valid)]
                         )
+                    # this process's contiguous slice of the global batch
+                    chunk = chunk[self.process_index * local_bs
+                                  : (self.process_index + 1) * local_bs]
                     samples = list(pool.map(load_one, chunk))
                     batch = {
                         k: _stack([s[k] for s in samples], self.pin_memory)

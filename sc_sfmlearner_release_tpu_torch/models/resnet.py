@@ -21,6 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import distributed
+
 STAGE_BLOCKS = {
     18: (2, 2, 2, 2),
     34: (3, 4, 6, 3),
@@ -70,6 +72,12 @@ class BatchNorm2d(nn.BatchNorm2d):
     n/(n-1): 2.9% at n = 36 values per channel). The batch statistics come
     out of the one ``F.batch_norm`` call, into scratch buffers it overwrites
     (momentum 1); the running buffers then move by ``momentum``.
+
+    Under a process group (``parallel.distributed``) the train-mode
+    statistics are the global batch's, as in the JAX program over a data
+    mesh: :meth:`_global_forward`. Each layer's forward and backward then
+    make one all-reduce each: 40 of each a step for the two ResNet-18
+    encoders' 20 layers each.
     """
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -77,6 +85,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        if distributed.is_distributed():
+            return self._global_forward(x)
         batch_mean = torch.zeros_like(self.running_mean)
         batch_var = torch.zeros_like(self.running_var)
         out = F.batch_norm(x, batch_mean, batch_var, self.weight, self.bias, True, 1.0,
@@ -87,6 +97,95 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.lerp_(batch_var * ((n - 1) / n), self.momentum)
             self.num_batches_tracked.add_(1)
         return out
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode on the statistics of every process's batch
+        (:class:`_GlobalBatchNorm`); the running statistics move by the
+        same rule as above, towards the global mean and biased variance."""
+        out, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return out
+
+
+def _channels(v: torch.Tensor) -> torch.Tensor:
+    return v[:, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode batch normalization of ``x`` ``[N, C, H, W]`` (fp32) over
+    the global batch, whose other rows lie on the other processes; every
+    process holds as many rows (the loader's slices are equal), so the
+    global statistics are the means of the processes' own.
+
+    Forward: this process's per-channel mean and mean of squares, summed
+    over processes in one all-reduce; the global mean and biased variance,
+    and ``x`` normalized by them. Backward: this process's ``sum(dy)`` and
+    ``sum(dy * (x - mean))`` per channel, summed over processes in one
+    all-reduce, give the input gradient of the global batch's
+    normalization; the weight and bias gradients are this process's
+    shares (the train step sums them with every other gradient).
+
+    On CUDA each pass over the activations is one of PyTorch's fused
+    batch-norm kernels (``batch_norm_stats``, ``batch_norm_elemt``,
+    ``batch_norm_backward_reduce``, ``batch_norm_backward_elemt``: the
+    kernels of ``nn.SyncBatchNorm``, which refuses CPU tensors), in the
+    activations' own memory format; on the CPU the same arithmetic in
+    tensor ops. Returns the output and, without gradient, the global mean
+    and biased variance."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c, processes = x.shape[1], distributed.process_count()
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, eps)
+            mean_sq = torch.addcmul(invstd.pow(-2) - eps, mean, mean)
+        else:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            mean_sq = torch.addcmul(var, mean, mean)
+        stats = distributed.global_sum(torch.cat([mean, mean_sq])) / processes
+        mean = stats[:c]
+        var = torch.clamp(torch.addcmul(stats[c:], mean, mean, value=-1.0), min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        if x.is_cuda:
+            out = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
+            scale = weight * invstd
+            out = torch.addcmul(_channels(bias - mean * scale), x, _channels(scale))
+        ctx.count = x.numel() // c * processes
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean_grad, _var_grad):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c, count = x.shape[1], ctx.count
+        # The input's memory format: the fused kernels' channels-last forms
+        # read NHWC activations, a gradient in another format is copied.
+        layout = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                  else torch.contiguous_format)
+        dy = dy.contiguous(memory_format=layout)
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, grad_weight, grad_bias = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, weight, True, True, True)
+        else:
+            xmu = x - _channels(mean)
+            sum_dy, sum_dy_xmu = dy.sum((0, 2, 3)), (dy * xmu).sum((0, 2, 3))
+            grad_weight, grad_bias = sum_dy_xmu * invstd, sum_dy
+        sums = distributed.global_sum(torch.cat([sum_dy, sum_dy_xmu]))
+        sum_dy, sum_dy_xmu = sums[:c], sums[c:]
+        if x.is_cuda:
+            counts = torch.full((1,), count, dtype=torch.int32, device=x.device)
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, weight, sum_dy,
+                                                 sum_dy_xmu, counts)
+        else:
+            dx = (dy - _channels(sum_dy / count)
+                  - xmu * _channels(invstd * invstd * sum_dy_xmu / count)) * _channels(
+                      weight * invstd)
+        return dx, grad_weight, grad_bias, None
 
 
 class BasicBlock(nn.Module):

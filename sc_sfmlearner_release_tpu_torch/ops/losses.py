@@ -12,6 +12,13 @@ The counterpart of the JAX package's ``ops/losses.py``:
 Pairs fold into the batch in JAX's group order: group g < N is
 (target = tgt, source = ref_g), group g >= N the reverse. Each scale costs
 one ``inverse_warp2`` (one warp-kernel launch) and one SSIM-kernel launch.
+
+Under a process group (``parallel.distributed``) every mean is the global
+batch's, as the JAX program's over a data mesh: each process divides its
+own sum by the global denominator (the masks' and counts' sum over
+processes, which carries no gradient) and applies the 10000-element guard
+to the global mask sum, so its loss is its share of the global loss and
+the shares' gradients add up to the global loss's.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel import distributed
 from .geometry import inverse_warp2
 from .ssim import ssim_nchw
 
@@ -32,7 +40,7 @@ def mean_on_mask(diff: torch.Tensor, valid_mask: torch.Tensor) -> torch.Tensor:
     """Masked mean of ``diff`` ``[..., C]`` under ``valid_mask`` ``[..., 1]``;
     0 when the mask covers no more than 10000 elements."""
     mask = valid_mask.expand_as(diff)
-    mask_sum = mask.sum()
+    mask_sum = distributed.global_sum(mask.sum())
     mean = (diff * mask).sum() / torch.clamp(mask_sum, min=1.0)
     return torch.where(mask_sum > MIN_MASK_SUM, mean, torch.zeros_like(mean))
 
@@ -43,7 +51,7 @@ def _grouped_mean_on_mask(diff: torch.Tensor, valid_mask: torch.Tensor) -> torch
     g = diff.shape[0]
     d2 = diff.reshape(g, -1)
     m2 = mask.reshape(g, -1)
-    mask_sum = m2.sum(dim=1)
+    mask_sum = distributed.global_sum(m2.sum(dim=1))
     mean = (d2 * m2).sum(dim=1) / torch.clamp(mask_sum, min=1.0)
     return torch.where(mask_sum > MIN_MASK_SUM, mean, torch.zeros_like(mean))
 
@@ -158,10 +166,13 @@ def photo_and_geometry_loss(
 def _sample_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
     """Mean over ``[B, ...]`` restricted to samples of weight 1."""
     if sample_mask is None:
+        if distributed.is_distributed():
+            return x.sum() / (x.numel() * distributed.process_count())
         return x.mean()
     wgt = sample_mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
     per_sample = x.numel() // x.shape[0]
-    return (x * wgt).sum() / (torch.clamp(wgt.sum(), min=1.0) * per_sample)
+    count = distributed.global_sum(wgt.sum())
+    return (x * wgt).sum() / (torch.clamp(count, min=1.0) * per_sample)
 
 
 def _smooth_one(

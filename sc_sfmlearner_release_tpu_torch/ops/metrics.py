@@ -5,6 +5,10 @@ masking (depth range and the dataset's crop), per-image median scaling, then
 batch means of the error statistics. Static shapes as there: masked
 reductions and a masked lower median (``torch.median``'s lower middle
 element on even counts) instead of boolean indexing.
+
+Under a process group (``parallel.distributed``) the batch means are the
+global batch's: each process holds its rows of it, and the sums and the
+count of valid images are summed over processes in one collective.
 """
 
 from __future__ import annotations
@@ -12,6 +16,8 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+
+from ..parallel import distributed
 
 CROPS = {
     # Garg ECCV16 crop fractions (y1, y2, x1, x2) and the depth cap.
@@ -51,9 +57,10 @@ def compute_depth_errors(
     """Batch depth metrics with per-image median scaling.
 
     ``gt`` ``[B, H, W]`` ground-truth depth (0 = missing), ``pred``
-    ``[B, H, W]``. Only the first ``n_valid`` images, if given, enter the
-    batch means (the loader pads the trailing batch by repeating its last
-    sample). Returns 0-d tensors named as :data:`METRIC_NAMES`.
+    ``[B, H, W]``. Only the first ``n_valid`` images of the global batch,
+    if given, enter the batch means (the loader pads the trailing batch by
+    repeating its last sample). Returns 0-d tensors named as
+    :data:`METRIC_NAMES`.
     """
     if dataset not in CROPS:
         raise ValueError(f"unknown dataset: {dataset}")
@@ -87,8 +94,11 @@ def compute_depth_errors(
         "a2": _masked_mean((thresh < 1.25**2).to(gt.dtype), valid),
         "a3": _masked_mean((thresh < 1.25**3).to(gt.dtype), valid),
     }
-    if n_valid is None:
+    if n_valid is None and not distributed.is_distributed():
         return {k: v.mean() for k, v in per_image.items()}
-    w_s = (torch.arange(b, device=gt.device) < int(n_valid)).to(gt.dtype)
-    denom = torch.clamp(w_s.sum(), min=1.0)
-    return {k: (v * w_s).sum() / denom for k, v in per_image.items()}
+    # The sums over the valid rows of the global batch, and their count.
+    valid_rows = b * distributed.process_count() if n_valid is None else int(n_valid)
+    w_s = (distributed.global_rows(b, gt.device) < valid_rows).to(gt.dtype)
+    sums = distributed.global_sum(
+        torch.stack([(v * w_s).sum() for v in per_image.values()] + [w_s.sum()]))
+    return dict(zip(per_image, (sums[:-1] / torch.clamp(sums[-1], min=1.0)).unbind()))

@@ -1,7 +1,9 @@
 """Stage host batches on the device ahead of the step.
 
 The counterpart of the JAX package's ``parallel/mesh.py::device_prefetch``
-for one card. On CUDA, each batch's copy is enqueued on a side stream
+for one card: the process's own (``cuda:LOCAL_RANK`` under the train CLI's
+``--distributed``, where each process stages its slice of the global
+batch). On CUDA, each batch's copy is enqueued on a side stream
 ``size`` steps ahead, so it overlaps the steps before it; when the step
 takes the batch, the current stream waits for that copy's event (the step
 never reads a half-copied batch) and each tensor is recorded on it (its

@@ -14,8 +14,21 @@ trains on one CUDA card (``--device cuda``, the default; it raises without
 one) or on the CPU (``--device cpu``).
 
 Not here: ``--sampler`` and ``--spatial-shards`` (the TPU band sampler and
-its mesh) and ``--distributed`` (multi-GPU is not ported); argparse rejects
-them.
+its width-sharded mesh); argparse rejects them.
+
+``--distributed`` trains data-parallel over the processes that torchrun
+starts, one card each (``torchrun --nproc_per_node=N -m
+sc_sfmlearner_release_tpu_torch.train DIR ... --distributed``; NCCL on the
+cards, gloo with ``--device cpu``). ``-b`` is the global batch, which N must
+divide: each process loads its contiguous slice of every batch, and the
+step computes what one process computes on the global batch (global
+BatchNorm statistics, losses and validation means; gradients summed over
+processes; ``parallel/distributed.py``). Every process loads
+``--pretrained-*`` and ``--resume``, then takes process 0's networks and
+optimizer state; only process 0 writes the experiment directory (logs,
+TensorBoard, checkpoints, ``progress_log_*.csv``), and every process waits
+at the end of each epoch until its checkpoint is written. Without
+torchrun's environment ``--distributed`` exits with an error.
 
 ``--fused-steps K`` runs K optimizer steps per dispatch
 (``make_train_step(fused_steps=K)``): on the card one CUDA-graph replay of
@@ -68,7 +81,7 @@ from .data.device_augment import AugmentConfig, make_device_augment
 from .inference import restore_disp_state, restore_pose_state
 from .models import DispNet, PoseNet
 from .models.convert import graft_imagenet_encoder, load_torch_state_dict
-from .parallel import device_prefetch
+from .parallel import device_prefetch, distributed
 from .training import (
     LossConfig, create_train_state, make_eval_depth_step, make_eval_step,
     make_inference_fn, make_optimizer, make_train_step,
@@ -175,6 +188,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint-freq", type=int, default=0,
                    help="also save the full train state every N steps "
                    "(preemption resilience; 0 = per-epoch only)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel training over the processes torchrun starts "
+                   "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; one card "
+                   "each, NCCL; gloo with --device cpu); each process feeds its "
+                   "disjoint slice of every global batch (-b)")
     p.add_argument("--full-state-freq", type=int, default=1,
                    help="write the full resume state every N epochs (model "
                    "weights are written every epoch regardless); the full "
@@ -330,17 +348,41 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     device = cli_device(args.device)
+    if not args.distributed:
+        return _train(args, device)
+    try:
+        # Before anything else touches the card: binds cuda:LOCAL_RANK.
+        device = distributed.init_distributed(device)
+    except RuntimeError as exc:
+        raise SystemExit(f"--distributed: {exc}") from exc
+    try:
+        code = _train(args, device)
+        distributed.barrier()
+        return code
+    finally:
+        distributed.leave()
+
+
+def _train(args, device: torch.device) -> int:
+    proc_idx, proc_cnt = distributed.process_index(), distributed.process_count()
+    if proc_cnt > 1:
+        print(f"=> process {proc_idx}/{proc_cnt} on {device}")
+    if args.batch_size % proc_cnt:
+        raise SystemExit(f"-b {args.batch_size} (the global batch) is not divisible by "
+                         f"{proc_cnt} processes")
+    is_main = proc_idx == 0  # only process 0 writes checkpoints and logs
     if args.debug_nans:
         enable_nan_debugging()
 
     timestamp = datetime.datetime.now().strftime("%m-%d-%H:%M")
     save_path = os.path.join("checkpoints", args.name, timestamp)
-    os.makedirs(save_path, exist_ok=True)
-    print(f"=> will save everything to {save_path}")
+    if is_main:
+        os.makedirs(save_path, exist_ok=True)
+        print(f"=> will save everything to {save_path}")
 
     tb_writer = None
     output_writers = []
-    if not args.no_tensorboard:
+    if not args.no_tensorboard and is_main:
         try:
             from tensorboardX import SummaryWriter
 
@@ -356,12 +398,13 @@ def main(argv=None) -> int:
     print(f"{len(train_set)} samples found in {len(train_set.scenes)} train scenes")
     print(f"{len(val_set)} samples found in {len(val_set.scenes)} valid scenes")
     pin = device.type == "cuda"
+    slices = {"process_index": proc_idx, "process_count": proc_cnt}
     train_loader = BatchLoader(train_set, args.batch_size, shuffle=True,
                                num_workers=args.workers, drop_last=True, seed=args.seed,
-                               pin_memory=pin)
+                               pin_memory=pin, **slices)
     val_loader = BatchLoader(val_set, args.batch_size, shuffle=False,
                              num_workers=args.workers, drop_last=False, seed=args.seed,
-                             pin_memory=pin)
+                             pin_memory=pin, **slices)
     epoch_size = args.epoch_size or len(train_loader)
     fused = max(args.fused_steps, 1)
     if fused > 1 and fused > epoch_size:
@@ -383,6 +426,8 @@ def main(argv=None) -> int:
         print(f"=> resuming full train state from {args.resume}")
         restore_train_state(args.resume, state)
         print(f"=> resumed at step {state.step}")
+    # Every process starts from process 0's networks and optimizer state.
+    distributed.replicate(disp_net, pose_net, optimizer)
     # Adam's count, read once (a capturable Adam keeps it on the card):
     # the loop counts steps on the host from here.
     start_step = state.step
@@ -408,13 +453,17 @@ def main(argv=None) -> int:
     infer = make_inference_fn(disp_net, device=device, precision=args.precision)
 
     # ---- logging ---------------------------------------------------------
-    _write_rows(os.path.join(save_path, args.log_summary),
-                [["train_loss", "validation_loss"]], "w")
-    _write_rows(os.path.join(save_path, args.log_full),
-                [["train_loss", "photo_loss", "smooth_loss", "geometry_consistency_loss"]], "w")
-    _write_rows(os.path.join(save_path, TIME_LOG), [["step", "data_wait_s", "step_s"]], "w")
+    if is_main:
+        _write_rows(os.path.join(save_path, args.log_summary),
+                    [["train_loss", "validation_loss"]], "w")
+        _write_rows(os.path.join(save_path, args.log_full),
+                    [["train_loss", "photo_loss", "smooth_loss",
+                      "geometry_consistency_loss"]], "w")
+        _write_rows(os.path.join(save_path, TIME_LOG), [["step", "data_wait_s", "step_s"]],
+                    "w")
 
-    logger = make_logger(args.epochs, epoch_size, len(val_loader), style=args.log_style)
+    logger = make_logger(args.epochs, epoch_size, len(val_loader), style=args.log_style,
+                         is_main=is_main)
     best_error = -1.0
     n_iter = 0
     # The one profiled dispatch comes after the warm-up, and the capture.
@@ -438,7 +487,8 @@ def main(argv=None) -> int:
                 break
             waited = time.time() - end
             t_data.update(waited)
-            profile = bool(args.profile_dir) and not profile_done and n_iter >= profile_from
+            profile = (bool(args.profile_dir) and is_main and not profile_done
+                       and n_iter >= profile_from)
             # The trace spans exactly this dispatch, until the card has run it.
             with trace(args.profile_dir if profile else None):
                 metrics = train_step(batch)
@@ -448,7 +498,7 @@ def main(argv=None) -> int:
             prev_iter, n_iter = n_iter, n_iter + fused
             epoch_steps += fused
             pending.append(metrics)
-            if args.checkpoint_freq and (
+            if is_main and args.checkpoint_freq and (
                     n_iter // args.checkpoint_freq > prev_iter // args.checkpoint_freq):
                 save_checkpoint(save_path, state, is_best=False, epoch=epoch)
             # did [prev_iter, n_iter) contain a multiple of print_freq?
@@ -480,8 +530,9 @@ def main(argv=None) -> int:
                  for first, waited, secs in dispatches for j in range(fused)]
         train_loss = float(np.mean([r[0] for r in full_rows])) if full_rows else 0.0
         logger.write(f" * Avg Loss : {train_loss:.3f}")
-        _write_rows(os.path.join(save_path, args.log_full), full_rows)
-        _write_rows(os.path.join(save_path, TIME_LOG), times)
+        if is_main:
+            _write_rows(os.path.join(save_path, args.log_full), full_rows)
+            _write_rows(os.path.join(save_path, TIME_LOG), times)
 
         # ---- validate ----------------------------------------------------
         validate = _validate_with_gt if args.with_gt else _validate_without_gt
@@ -500,12 +551,16 @@ def main(argv=None) -> int:
             best_error = decisive_error
         is_best = decisive_error <= best_error
         best_error = min(best_error, decisive_error)
-        save_checkpoint(
-            save_path, state, is_best, epoch=epoch + 1,
-            full_state=(epoch + 1) % max(args.full_state_freq, 1) == 0
-            or epoch + 1 == args.epochs,
-        )
-        _write_rows(os.path.join(save_path, args.log_summary), [[train_loss, decisive_error]])
+        if is_main:
+            save_checkpoint(
+                save_path, state, is_best, epoch=epoch + 1,
+                full_state=(epoch + 1) % max(args.full_state_freq, 1) == 0
+                or epoch + 1 == args.epochs,
+            )
+            _write_rows(os.path.join(save_path, args.log_summary),
+                        [[train_loss, decisive_error]])
+        # No process leaves an epoch before its checkpoint is on disk.
+        distributed.barrier()
 
     logger.finish()
     for writer in [tb_writer] + output_writers:

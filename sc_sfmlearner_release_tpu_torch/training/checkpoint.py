@@ -21,6 +21,10 @@ writes ``dispnet_checkpoint.msgpack``, ``exp_pose_checkpoint.msgpack``
 (flax ``{params, batch_stats}`` trees), their ``*_model_best`` copies and
 ``train_state.msgpack`` (JAX's ``TrainState``), and
 :func:`restore_train_state` resumes from such a directory as from its own.
+
+:class:`CheckpointManager` keeps versioned step directories of those files
+with a retention limit: the counterpart of the JAX package's
+``OrbaxCheckpointManager``, in the port's own format (no Orbax).
 """
 
 from __future__ import annotations
@@ -28,11 +32,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..parallel import distributed
 from ..models.convert import (
     disp_from_jax, disp_to_jax, encoder_layers, pose_from_jax, pose_to_jax,
     read_jax_variables, write_jax_variables,
@@ -201,3 +206,67 @@ def save_jax_checkpoint(
     if full_state:
         write_jax_variables(os.path.join(save_path, JAX_TRAIN_STATE), jax_train_state(state))
     _write_meta(save_path, state.step, epoch)
+
+
+class CheckpointManager:
+    """Versioned checkpoints: ``<directory>/<step>/`` holds
+    :func:`save_checkpoint`'s files with the full train state, and only the
+    newest ``max_to_keep`` steps stay (``None`` keeps all). The counterpart
+    of the JAX package's ``OrbaxCheckpointManager``; the format is the
+    port's own ``.pth.tar`` files, not Orbax's.
+
+    Under a process group only process 0 writes; :meth:`save` returns on
+    every process once the step is on disk, so any process may then
+    :meth:`restore` it. A step is written into a scratch directory and
+    renamed into place, so a save cut short leaves no step behind.
+
+    Usage::
+
+        mgr = CheckpointManager(directory, max_to_keep=5)
+        mgr.save(state.step, state)
+        mgr.restore(state)           # the latest step, into state
+        mgr.restore(state, step=3)
+    """
+
+    def __init__(self, directory: str, max_to_keep: Optional[int] = 5):
+        if max_to_keep is not None and max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1 or None, got {max_to_keep}")
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        if distributed.process_index() == 0:
+            os.makedirs(self.directory, exist_ok=True)
+        distributed.barrier()
+
+    def all_steps(self) -> List[int]:
+        """The saved steps, oldest first."""
+        return sorted(int(n) for n in os.listdir(self.directory) if n.isdigit())
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState, epoch: Optional[int] = None) -> None:
+        """Write ``state`` as step ``step`` (replacing an earlier save of
+        that step) and drop the oldest steps past ``max_to_keep``."""
+        if distributed.process_index() == 0:
+            final = os.path.join(self.directory, str(step))
+            scratch = final + ".tmp"
+            shutil.rmtree(scratch, ignore_errors=True)
+            save_checkpoint(scratch, state, is_best=False, epoch=epoch, full_state=True)
+            shutil.rmtree(final, ignore_errors=True)
+            os.rename(scratch, final)
+            if self.max_to_keep is not None:
+                for old in self.all_steps()[:-self.max_to_keep]:
+                    shutil.rmtree(os.path.join(self.directory, str(old)))
+        distributed.barrier()
+
+    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
+        """Load step ``step`` (the latest if ``None``) into ``state``, in
+        place (:func:`restore_train_state`), and return it."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        path = os.path.join(self.directory, str(step))
+        if not os.path.isdir(path):
+            raise FileNotFoundError(f"no checkpoint of step {step} under {self.directory}")
+        return restore_train_state(path, state)

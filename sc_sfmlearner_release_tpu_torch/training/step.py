@@ -15,6 +15,15 @@ Batch layout (numpy arrays or tensors):
     "n_valid":    optional int, samples past it are loader padding
   }
 
+Under a process group (``parallel.distributed``, the train CLI's
+``--distributed``) each process takes its contiguous slice of the global
+batch, and every step computes what one process computes on the global
+batch: BatchNorm and the losses take global statistics and means (each
+process's loss is its share of the global loss), the train step sums the
+gradients and the metrics over processes in one all-reduce after the
+backward, and the eval steps' padding mask follows the global row numbers.
+With ``fused_steps`` on the card the all-reduces are captured in the graph.
+
 Precision: ``"bf16"`` (the default, as the JAX trainer's ``--precision``)
 runs the convolutions under bf16 autocast; BatchNorm, the heads, geometry
 and losses stay fp32. ``"fp32"`` runs everything in fp32. The entry points
@@ -36,6 +45,7 @@ from ..data.device_augment import step_generator
 from ..ops import KERNEL_WRAPPERS
 from ..ops.losses import photo_and_geometry_loss, resize_nearest, smooth_loss
 from ..ops.metrics import compute_depth_errors
+from ..parallel import distributed
 from .state import optimizer_step
 
 PRECISIONS = ("bf16", "fp32")
@@ -223,9 +233,11 @@ def make_train_step(
     disable_tf32()
     disp_net.to(device)
     pose_net.to(device)
+    params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def update(snippet: Batch) -> Dict[str, torch.Tensor]:
-        """One optimizer step on a snippet on the device."""
+        """One optimizer step on a snippet on the device (under a process
+        group, on this process's slice of the global batch)."""
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = total_loss(disp_net, pose_net, snippet, cfg, precision=precision,
                                    train=True, remat=remat)
@@ -237,8 +249,10 @@ def make_train_step(
             with torch.no_grad():
                 for b, saved in zip(bn_buffers, moved_once):
                     b.copy_(saved)
+        metrics = distributed.sum_grads_and_metrics(
+            params, {k: v.detach() for k, v in metrics.items()})
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     if fused_on_card:
         return _GraphedSteps(fused_steps, device, optimizer, update, augment_fn, aug_seed)
@@ -401,8 +415,10 @@ def make_eval_step(
     """Photometric validation without ground truth: the same losses with
     both networks in eval mode, auto-mask off and scale 0 only. If the batch
     carries ``"n_valid"``, the padded samples past it are masked out of
-    every mean. Moves both networks to ``device``; each call puts them in
-    eval mode. Returns ``eval_step(batch) -> metrics`` (0-d tensors)."""
+    every mean (``n_valid`` counts the global batch: under a process group
+    the batch holds this process's rows of it). Moves both networks to
+    ``device``; each call puts them in eval mode. Returns
+    ``eval_step(batch) -> metrics`` (0-d tensors, the global batch's)."""
     device = resolve_device(device)
     _check_precision(precision)
     disable_tf32()
@@ -414,12 +430,11 @@ def make_eval_step(
         b = _snippet(batch, device)
         sample_mask = None
         if "n_valid" in batch:
-            sample_mask = (
-                torch.arange(b["tgt"].shape[0], device=device) < int(batch["n_valid"])
-            ).float()
+            rows = distributed.global_rows(b["tgt"].shape[0], device)
+            sample_mask = (rows < int(batch["n_valid"])).float()
         with torch.no_grad():
             _, metrics = total_loss(disp_net, pose_net, b, eval_cfg, sample_mask, precision)
-        return metrics
+        return distributed.sum_metrics(metrics)
 
     return eval_step
 

@@ -19,6 +19,7 @@ import copy
 import functools
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,15 @@ from sc_sfmlearner_release_tpu_torch.training.checkpoint import (
     save_checkpoint,
 )
 from test_torch_models import jax_disp_vars, jax_pose_vars
+
+
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's files go when it ends: full-width checkpoints take
+    hundreds of MB, and pytest keeps the temporary directories of its last
+    three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True, scope="module")

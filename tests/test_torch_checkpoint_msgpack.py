@@ -71,6 +71,15 @@ MOVE_RTOL = 0.1      # parameter moves, rel L2 per tensor
 WEIGHT_DECAY = 0.01
 
 
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's files go when it ends: full-width checkpoints take
+    hundreds of MB, and pytest keeps the temporary directories of its last
+    three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
     """The suite runs in several worker processes on shared cores."""

@@ -77,22 +77,34 @@ def _randomize_bn(net, seed):
     return net
 
 
-def _checkpoint(tmp_path_factory, net, name):
-    path = str(tmp_path_factory.mktemp("ckpt") / name)
+def _checkpoint(directory, net, name):
+    path = str(directory / name)
     save_torch_checkpoint(net.state_dict(), path)
     return path
 
 
+@pytest.fixture(autouse=True)
+def _remove_tmp_path(tmp_path):
+    """Each test's files go when it ends: a network's ``.pth.tar`` is 50-130
+    MB, and pytest keeps the temporary directories of its last three runs."""
+    yield
+    shutil.rmtree(tmp_path, ignore_errors=True)
+
+
 @pytest.fixture(scope="module")
 def disp_pth(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ckpt")
     net = DispNet(18, generator=torch.Generator().manual_seed(0))
-    return _checkpoint(tmp_path_factory, _randomize_bn(net, 0), "dispnet_checkpoint.pth.tar")
+    yield _checkpoint(d, _randomize_bn(net, 0), "dispnet_checkpoint.pth.tar")
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
 def pose_pth(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ckpt")
     net = PoseNet(18, generator=torch.Generator().manual_seed(1))
-    return _checkpoint(tmp_path_factory, _randomize_bn(net, 1), "exp_pose_checkpoint.pth.tar")
+    yield _checkpoint(d, _randomize_bn(net, 1), "exp_pose_checkpoint.pth.tar")
+    shutil.rmtree(d, ignore_errors=True)
 
 
 @pytest.fixture(scope="module")
@@ -141,9 +153,9 @@ def test_test_disp_equals_jax(disp_pth, depth_list, jax_preds, tmp_path, capsys)
     assert "8 files to test" in out and "Avg Time" in out and "Avg Speed" in out
 
 
-def test_test_disp_resnet50_equals_jax(depth_list, tmp_path_factory, tmp_path):
+def test_test_disp_resnet50_equals_jax(depth_list, tmp_path):
     net = _randomize_bn(DispNet(50, generator=torch.Generator().manual_seed(2)), 2)
-    ckpt = _checkpoint(tmp_path_factory, net, "dispnet50.pth.tar")
+    ckpt = _checkpoint(tmp_path, net, "dispnet50.pth.tar")
     _run([sys.executable, "test_disp.py"] + _disp_args(ckpt, depth_list, tmp_path / "jax", 50))
     assert test_disp.main(_disp_args(ckpt, depth_list, tmp_path / "port", 50) + CPU) == 0
     got, want = (np.load(tmp_path / d / "predictions.npy") for d in ("port", "jax"))

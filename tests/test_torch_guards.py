@@ -90,6 +90,43 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     assert port.resolve_device("cpu").type == "cpu"
 
 
+def test_graft_entry_and_distributed_init_need_a_card(monkeypatch):
+    from sc_sfmlearner_release_tpu_torch import graft_entry
+    from sc_sfmlearner_release_tpu_torch.parallel import distributed
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.entry()
+    # The dry run runs on the card unless the CPU is asked for.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        graft_entry.dryrun_multigpu(2)
+    for key, value in zip(distributed.TORCHRUN_ENV, ("0", "1", "0", "localhost", "1")):
+        monkeypatch.setenv(key, value)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(RuntimeError, match="LOCAL_RANK 0, but 0 CUDA device"):
+        distributed.init_distributed("cuda")
+    assert not distributed.is_distributed()
+
+
+def test_distributed_backend_follows_the_device_and_the_cards(monkeypatch):
+    """NCCL with a card per rank of this host, gloo where ranks share cards
+    (which NCCL refuses) and on the CPU."""
+    from sc_sfmlearner_release_tpu_torch.parallel import distributed
+
+    monkeypatch.setenv("WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert distributed.backend_for("cuda") == "nccl"
+    assert distributed.backend_for("cpu") == "gloo"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert distributed.backend_for("cuda:0") == "gloo"
+    monkeypatch.delenv("LOCAL_WORLD_SIZE")
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert distributed.backend_for("cuda") == "nccl"
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert distributed.backend_for("cuda") == "gloo"
+
+
 def test_wrappers_take_the_plain_path_only_for_cpu_tensors():
     meta = dict(device="meta")
     with pytest.raises(ValueError, match="CUDA device"):

@@ -7,14 +7,16 @@ Checked: the CSV logs and the checkpoint layout, that ``--resume``
 continues the step and Adam's state, ``--pretrained-disp/-pose`` from
 ``.pth.tar``, ``--with-pretrain 1`` with ``--imagenet-weights-dir`` and the
 hard error without weights, that the flags the port leaves out are
-rejected, and that the default ``--device cuda`` fails clearly without a
-card.
+rejected (also beside ``--distributed``, which
+``tests/test_torch_distributed.py`` covers), and that the default
+``--device cuda`` fails clearly without a card.
 """
 
 import csv
 import glob
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -64,8 +66,22 @@ def tree(tmp_path_factory):
 @pytest.fixture(scope="module")
 def workdir(tmp_path_factory):
     """One working directory for the module's runs (``checkpoints/`` lands
-    there); each test changes into it."""
-    return tmp_path_factory.mktemp("runs")
+    there); each test changes into it. Each run writes ~0.5 GB of
+    checkpoints (full-width ResNet-18 weights and Adam state): the
+    directory goes with the module."""
+    path = tmp_path_factory.mktemp("runs")
+    yield path
+    shutil.rmtree(path, ignore_errors=True)
+
+
+@pytest.fixture(autouse=True)
+def _remove_single_use_runs(workdir):
+    """After each test, every run but the shared ``packed`` one is removed,
+    so the module holds at most two runs on disk at once."""
+    yield
+    for run in glob.glob(os.path.join(str(workdir), "checkpoints", "*")):
+        if os.path.basename(run) != "packed":
+            shutil.rmtree(run, ignore_errors=True)
 
 
 def _run(workdir, argv, monkeypatch):
@@ -198,7 +214,7 @@ def test_with_pretrain_without_weights_is_an_error(tree, workdir, tmp_path, monk
 
 
 @pytest.mark.parametrize("flag", [["--sampler", "gather"], ["--spatial-shards", "2"],
-                                  ["--distributed"]])
+                                  ["--distributed", "--spatial-shards", "2"]])
 def test_left_out_flags_are_rejected(tree, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.build_parser().parse_args([tree, "--name", "x"] + flag)
