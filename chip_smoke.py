@@ -4,11 +4,14 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py [--seed 0] [--profile] [--graph-seeds N]
+                          [--cpu-check-seeds N]
 
 ``--profile`` adds the validation and train steps' device time by kernel
 group (torch.profiler); ``--graph-seeds N`` repeats phase 7's fp32
-graph-against-eager check from N more seeds. Phases, each of which fails
-the run (non-zero exit) when it fails:
+graph-against-eager check from N more seeds; ``--cpu-check-seeds N``
+repeats phase 5's fp32 card-against-CPU train check from N more draws and
+reports each gate's worst value and crossings (which fail the run).
+Phases, each of which fails the run (non-zero exit) when it fails:
 
 1. Device: the card's name and power limit (nvidia-smi); TF32 off.
 2. Build: every CUDA kernel of the port, compiled from ``csrc/`` for
@@ -20,7 +23,12 @@ the run (non-zero exit) when it fails:
    kernels against autograd through the plain versions (the warp's
    d(coords) and d(source depth) in both padding modes on projected and
    random coordinates; SSIM's d/dy and d/dx at every SSIM shape, also
-   against its own plain version, with each launch's geometry). Kernel,
+   against its own plain version, with each launch's geometry). Also at
+   the width-sharded path's shapes (``--spatial-shards 2``): the warp with
+   shard 1's coordinates, W/2 wide, into the source gathered to full
+   width, and SSIM on a [16, 3, 256, 417] tile (its backward held against
+   its plain version; against autograd only reported, beside a float64
+   autograd: see ``SSIM_SHARD_SHAPE``). Kernel,
    plain and library or stream times. ``ms`` is CUDA events around
    back-to-back wrapper calls; ``device_ms`` is the kernel's own device time
    per call (torch.profiler, or a CUDA graph of the calls replayed under
@@ -154,9 +162,39 @@ the run (non-zero exit) when it fails:
    batch here: losses, every gradient and every BatchNorm statistic; both
    ranks' parameters bit-identical after the step; over NCCL also
    ``fused_steps=2`` (the all-reduces captured in the CUDA graph) for 3
-   calls. (3) ``graft_entry.dryrun_multigpu`` over the machine's cards (two
-   ranks sharing the card where there is one). (4) The phase's wall time.
-14. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
+   calls. (3) ``graft_entry.dryrun_data_parallel`` over the machine's
+   cards (two ranks sharing the card where there is one). (4) The phase's wall time.
+14. This slice's main path, width sharding (``[spatial]``, after
+   ``[distributed]``): two ranks each holding one column half of every
+   image (``distributed.run_processes(..., spatial_shards=2)``: NCCL with a
+   card each on two or more cards, else gloo with both on card 0). (1) The
+   fp32 step (TF32 off) at B2 N2 832x256 against one process on the
+   global batch on this card: losses, every gradient, every BatchNorm
+   statistic, both ranks' parameters bit-identical (the fp32 check's
+   128x416 cannot split: 13 columns at the deepest level). (2) The bf16
+   canonical step at B4 N2 832x256: its first step's losses against one
+   process, each rank's peak device memory against the one process's
+   (at most 0.75 of it), the step's time and the spatial collectives it
+   calls. Both with the launch counts at 0 (every kernel once per step
+   and rank). (3) The train CLI with ``--distributed --spatial-shards 2``
+   under torchrun's environment (``run_processes(..., join=False)``: the
+   CLI joins the group) on phase 6's packed dataset for one epoch of 4
+   steps and a validation batch, launches per rank; with two or more
+   cards again with ``--fused-steps 2``. (4) ``graft_entry.
+   dryrun_data_spatial`` (data x spatial-2 over the cards, two ranks
+   sharing the one card where there is one). (5) The phase's wall time.
+15. The port's parity runbooks (``[scripts]``, after ``[tools]``):
+   ``sc_sfmlearner_release_tpu_torch/scripts/kitti_parity_runbook.sh`` and
+   ``nyu_parity_runbook.sh`` side by side with ``SMOKE=1 DEVICE=cuda`` (prepare, pack,
+   train, ``test_disp``, ``eval_depth``, ``test_vo``, ``eval_odom``; NYU:
+   train, ``test_disp``, ``eval_depth``), every ``python -m`` step through
+   a shim that runs it under ``chip_smoke.py --count-launches`` (the
+   launches of all their processes summed); the runbooks stop at a
+   failing step, so their exit codes gate every step. Checked:
+   ``predictions.npy`` finite with the frame count, ``eval_depth``'s
+   printed metrics finite, the VO trajectory one pose per frame,
+   ``eval_odom``'s errors finite; each step's wall time.
+16. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
    CLI run's of phase 10, with every path's in ``launches_by_path``), the nvidia-smi line,
    and last ``{"ok": true, "device": {...}}``.
 
@@ -414,6 +452,11 @@ def warp_inputs(rng: np.random.RandomState) -> dict:
     for mode in ("zeros", "border"):
         proj_coords, _ = project_pixel_coords(tgt_depth, pose, intr, mode)
         cases += [(mode, "projected", proj_coords.contiguous()), (mode, "random", rand_coords)]
+    # Width sharding (S = 2): shard 1's target columns, W/2 wide from column
+    # W/2 (what pixel_grid(x0=W/2) projects, normalised by the whole W), sample
+    # the source gathered to its whole width.
+    for mode, label, coords in list(cases):
+        cases.append((mode, f"{label}, shard 1 of 2", coords[:, :, W // 2:].contiguous()))
     return {"depth": torch.from_numpy(depth).to(dev), "rgb": torch.from_numpy(rgb).to(dev),
             "src": torch.from_numpy(np.concatenate([depth, rgb], -1)).to(dev), "cases": cases}
 
@@ -469,9 +512,10 @@ def warp_bwd_check(inputs: dict, rng: np.random.RandomState) -> float:
     """The backward kernel against autograd through the plain version, for
     d(coords) and d(source depth), and once through the autograd Function."""
     depth, rgb, src = inputs["depth"], inputs["rgb"], inputs["src"]
-    dout = torch.from_numpy(rng.randn(PAIRS, H, W, 4).astype(np.float32)).to(DEVICE)
+    full = torch.from_numpy(rng.randn(PAIRS, H, W, 4).astype(np.float32)).to(DEVICE)
     err = 0.0
     for mode, label, coords in inputs["cases"]:
+        dout = full[:, :, :coords.shape[2]].contiguous()
         dsrc, dcoords = warp_sample_bwd(src, coords, dout, mode, 1, True)
         (want_d, want_c), _ = plain_grads(
             lambda d, c: warp_sample_plain(d, c, mode, frozen=rgb), (depth, coords), dout)
@@ -481,6 +525,7 @@ def warp_bwd_check(inputs: dict, rng: np.random.RandomState) -> float:
         err = max(err, check_rel(f"warp_sample_bwd {mode}/{label} d(depth)", dsrc, want_d,
                                  GRAD_TOL))
     mode, label, coords = inputs["cases"][0]
+    dout = full
     d = depth.clone().requires_grad_(True)
     c = coords.clone().requires_grad_(True)
     got_d, got_c = torch.autograd.grad(warp_sample(d, c, mode, frozen=rgb), (d, c), dout)
@@ -540,6 +585,16 @@ SSIM_EDGE_SHAPES = ((2, 3, 37, 53), (1, 3, 256, 834), (2, 3, 40, 64), (3, 3, 100
                     (1, 2, 6, 59))
 
 
+# A tile of width sharding at S = 2: half the width and one halo column on
+# its inner side (``ops/ssim.py::ssim_nchw_sharded``). Its backward is held
+# against its plain version ``ssim_nchw_bwd_plain``; against autograd through
+# the plain forward it is only reported, beside both against a float64
+# autograd: on correlated inputs these two fp32 evaluations, each ~4.5e-5 of
+# max|ref| from the float64 one, differ by up to 1.2e-5 of it at one pixel
+# of this shape, above GRAD_TOL.
+SSIM_SHARD_SHAPE = (PAIRS, 3, H, W // 2 + 1)
+
+
 def ssim_plan(x: torch.Tensor, y: torch.Tensor) -> str:
     """The SSIM launch's geometry for these inputs, as ``ssim_fwd`` makes it."""
     lib = _build.load("ssim")
@@ -574,7 +629,8 @@ def ssim_cases(rng: np.random.RandomState):
     and an input 4 bytes off alignment; y independent of x, and correlated."""
     dev = torch.device(DEVICE)
     offset = (1, 2, 64, 128)
-    cases = [((PAIRS, 3, H, W), False), *((s, False) for s in SSIM_EDGE_SHAPES), (offset, True)]
+    cases = [((PAIRS, 3, H, W), False), (SSIM_SHARD_SHAPE, False),
+             *((s, False) for s in SSIM_EDGE_SHAPES), (offset, True)]
     for case, misaligned in cases:
         n = int(np.prod(case))
         x = torch.from_numpy(rng.rand(n + 1).astype(np.float32)).to(dev)
@@ -622,11 +678,26 @@ def ssim_phase(rng: np.random.RandomState) -> dict:
             "library_ms": None, "stream_ms": stream_ms}
 
 
+def report_against_float64(name: str, x, y, g, got, fp32) -> None:
+    """Logs the kernel's (d/dx, d/dy) ``got`` and autograd's fp32 ``fp32``
+    against each other and against autograd through the plain forward in
+    float64, each as max|err| over max|ref|."""
+    (want_x, want_y), _ = plain_grads(ssim_nchw_plain, (x.double(), y.double()),
+                                      g.double())
+    rel = lambda a, b: ((a.double() - b).abs().max() / b.abs().max()).item()
+    for i, d in ((1, "d/dy"), (0, "d/dx")):
+        exact = (want_x, want_y)[i]
+        log(f"  {name} {d} (reported): kernel vs autograd {rel(got[i], fp32[i]):.3e}; "
+            f"against float64 autograd: kernel {rel(got[i], exact):.3e}, fp32 autograd "
+            f"{rel(fp32[i], exact):.3e}")
+
+
 def ssim_bwd_check(rng: np.random.RandomState) -> float:
     """The backward kernel against autograd through the plain forward and
     against its own plain version ``ssim_nchw_bwd_plain``, for d/dy alone
-    (the main path's call) and d/dx with d/dy, at every SSIM case; and once
-    through the autograd Function."""
+    (the main path's call) and d/dx with d/dy, at every SSIM case (at
+    ``SSIM_SHARD_SHAPE`` against the plain version, autograd reported);
+    and once through the autograd Function."""
     err = 0.0
     for tag, x, ys in ssim_cases(rng):
         g = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(DEVICE)
@@ -638,7 +709,11 @@ def ssim_bwd_check(rng: np.random.RandomState) -> float:
             dx, dy = ssim_nchw_bwd(x, y, g, need_x=True)
             torch.cuda.synchronize()
             name = f"ssim_nchw_bwd {tag} {label}"
-            for ref, want in (("autograd", (want_x, want_y)), ("plain", (plain_x, plain_y))):
+            refs = [("autograd", (want_x, want_y)), ("plain", (plain_x, plain_y))]
+            if tuple(x.shape) == SSIM_SHARD_SHAPE:
+                report_against_float64(name, x, y, g, (dx, dy), (want_x, want_y))
+                refs = refs[1:]
+            for ref, want in refs:
                 err = max(err, check_rel(f"{name} d/dy alone vs {ref}", dy_only, want[1],
                                          GRAD_TOL))
                 err = max(err, check_rel(f"{name} d/dy vs {ref}", dy, want[1], GRAD_TOL))
@@ -802,10 +877,12 @@ def grads_by_name(*nets) -> dict:
             for name, p in net.named_parameters() if p.grad is not None}
 
 
-def check_step_against_cpu(seed: int, rng: np.random.RandomState) -> dict:
+def check_step_against_cpu(seed: int, rng: np.random.RandomState, gate: bool = True) -> dict:
     """The fp32 train step on the card (TF32 off) against the plain versions
     on the CPU, at B2 N2 128x416 with full-width ResNet-18: losses, and each
-    parameter's gradient by relative L2."""
+    parameter's gradient by relative L2. Returns the worst errors (and the
+    worst tensors' names under ``where_*``); with ``gate`` a crossing
+    raises."""
     b, n, h, w = CHECK_SHAPE
     k = kitti_intrinsics(b)
     k[:, :2] *= np.array([[w / W], [h / H]], np.float32)
@@ -825,7 +902,7 @@ def check_step_against_cpu(seed: int, rng: np.random.RandomState) -> dict:
         worst[key] = rel
         log(f"  fp32 train {key}: card {got[key]:.7f} cpu {want[key]:.7f} rel {rel:.2e} "
             f"(tol {STEP_RTOL:.0e})")
-        if not rel <= STEP_RTOL:
+        if gate and not rel <= STEP_RTOL:
             raise AssertionError(f"fp32 train {key}: card {got[key]} vs CPU {want[key]}")
     g_card, g_cpu = grads_by_name(disp_net, pose_net), grads_by_name(*cpu_nets)
     if set(g_card) != set(g_cpu) or len(g_cpu) < 100:
@@ -838,10 +915,36 @@ def check_step_against_cpu(seed: int, rng: np.random.RandomState) -> dict:
         top = max(mine, key=mine.get)
         log(f"  fp32 train gradients, {part}: {len(mine)} tensors, median rel L2 "
             f"{np.median(list(mine.values())):.2e}, worst {mine[top]:.2e} ({top}) (tol {tol:.1e})")
-        if not mine[top] <= tol:
+        if gate and not mine[top] <= tol:
             raise AssertionError(f"fp32 train gradient {top}: rel L2 {mine[top]:.2e} > {tol}")
         worst[f"grad_{part}"] = mine[top]
+        worst[f"where_{part}"] = top
     return worst
+
+
+def cpu_check_seeds(seed: int, n: int) -> list:
+    """The fp32 card-against-CPU check from ``n`` more draws (draw ``d``:
+    ``make_nets(d)`` with its heads spread, the batch from
+    ``RandomState(d)``, ``d = seed + 200 ...``), each against every gate:
+    the worst errors over the draws and the crossings, which it returns."""
+    tols = {**{k: STEP_RTOL for k in METRICS},
+            **{f"grad_{part}": tol for part, tol in GRAD_RTOL.items()}}
+    crossings, worst = [], {k: (0.0, None) for k in tols}
+    for draw in range(seed + 200, seed + 200 + n):
+        got = check_step_against_cpu(draw, np.random.RandomState(draw), gate=False)
+        for k, tol in tols.items():
+            if got[k] > worst[k][0]:
+                worst[k] = (got[k], draw)
+            if not got[k] <= tol:
+                where = got.get(f"where_{k[5:]}", "")
+                crossings.append(f"draw {draw} {k} {got[k]:.3e} > {tol} {where}")
+        log(f"[cpu-check] draw {draw}: " + ", ".join(
+            f"{k} {got[k]:.3e}" + (f" ({got['where_' + k[5:]]})" if k.startswith("grad") else "")
+            for k in tols))
+    log(f"[cpu-check] {n} draws: worst (value, draw) " + ", ".join(
+        f"{k} {v:.3e} (draw {d}; tol {tols[k]})" for k, (v, d) in worst.items())
+        + f"; {len(crossings)} crossing(s): {crossings}")
+    return crossings
 
 
 def train_phase(seed: int, rng: np.random.RandomState, profile: bool):
@@ -1170,9 +1273,10 @@ def params_digest(*nets) -> str:
     return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
 
 
-def two_rank_inputs(seed: int):
-    """The fp32 check's nets (heads spread) and global batch at CHECK_SHAPE."""
-    b, n, h, w = CHECK_SHAPE
+def two_rank_inputs(seed: int, shape=CHECK_SHAPE):
+    """The fp32 check's nets (heads spread) and a global batch of ``shape``
+    (B, N, H, W)."""
+    b, n, h, w = shape
     rng = np.random.RandomState(seed)
     k = kitti_intrinsics(b)
     k[:, :2] *= np.array([[w / W], [h / H]], np.float32)
@@ -1247,22 +1351,13 @@ def two_rank_graphed(seed: int, device: torch.device, local: dict, stage) -> dic
     return {"losses": losses, "launches": read_launches(), "digest": params_digest(*nets)}
 
 
-def two_rank_phase(seed: int, per_step: dict) -> dict:
-    """Two ranks on the card(s) against one process on the global batch."""
-    # The reference first: one process, the global batch, this card.
-    disp_net, pose_net, batch = two_rank_inputs(seed)
-    step = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
-                           device=DEVICE, precision="fp32")
-    want = {k: v.item() for k, v in step(batch).items()}
-    want_grads = grads_by_name(disp_net, pose_net)
-    want_buffers = bn_buffers(disp_net, pose_net)
-    del step, disp_net, pose_net
-    torch.cuda.empty_cache()
-    results = distributed.run_processes(two_rank_rank, 2, DEVICE, args=(seed,),
-                                        timeout=DIST_WORKER_TIMEOUT)
-    log(f"[distributed] two ranks: {results[0]['route']} on {results[0]['device']} and "
-        f"{results[1]['device']}; gradient all-reduce {results[0]['grad_allreduce_ms']:.4f} ms "
-        f"per step (10 calls; NCCL: a CUDA-graph replay, gloo: CUDA events)")
+def check_ranks(results: list, per_step: dict, want: dict, want_grads: dict,
+                want_buffers: dict, who: str) -> None:
+    """Every rank's fp32 step (its ``launches``, ``metrics``, ``digest``
+    and ``buffers``; rank 0's ``grads``, summed over the ranks) against one
+    process's on the global batch: the launches, the losses within
+    STEP_RTOL, bit-identical parameters, every BatchNorm buffer within abs
+    DIST_BN_ATOL + rel DIST_BN_RTOL, every gradient within GRAD_RTOL."""
     for r, res in enumerate(results):
         if res["launches"] != per_step:
             raise AssertionError(f"rank {r} launches {res['launches']}, expected {per_step}")
@@ -1272,8 +1367,9 @@ def two_rank_phase(seed: int, per_step: dict) -> dict:
                 f"{want[key]:.7f} rel {rel:.2e} (tol {STEP_RTOL:.0e})")
             if not rel <= STEP_RTOL:
                 raise AssertionError(f"rank {r} {key}: {res['metrics'][key]} vs {want[key]}")
-    if results[0]["digest"] != results[1]["digest"]:
-        raise AssertionError("the two ranks' parameters differ after the step")
+    if len({res["digest"] for res in results}) != 1:
+        raise AssertionError(f"the {who} parameters differ after the step")
+    log(f"  the {who} parameters after the fp32 step: bit-identical")
     for r, res in enumerate(results):
         if set(res["buffers"]) != set(want_buffers) or len(want_buffers) < 100:
             raise AssertionError(f"rank {r}: buffers of {len(res['buffers'])} and "
@@ -1297,11 +1393,30 @@ def two_rank_phase(seed: int, per_step: dict) -> dict:
     for part, tol in GRAD_RTOL.items():
         mine = {k: v for k, v in rels.items() if (".encoder." in k) == (part == "encoders")}
         top = max(mine, key=mine.get)
-        log(f"  two ranks' gradients (summed) against one process, {part}: {len(mine)} "
+        log(f"  {who} gradients (summed) against one process, {part}: {len(mine)} "
             f"tensors, median rel L2 {np.median(list(mine.values())):.2e}, worst "
             f"{mine[top]:.2e} ({top}) (tol {tol:.1e})")
         if not mine[top] <= tol:
-            raise AssertionError(f"two-rank gradient {top}: rel L2 {mine[top]:.2e} > {tol}")
+            raise AssertionError(f"{who} gradient {top}: rel L2 {mine[top]:.2e} > {tol}")
+
+
+def two_rank_phase(seed: int, per_step: dict) -> dict:
+    """Two ranks on the card(s) against one process on the global batch."""
+    # The reference first: one process, the global batch, this card.
+    disp_net, pose_net, batch = two_rank_inputs(seed)
+    step = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+                           device=DEVICE, precision="fp32")
+    want = {k: v.item() for k, v in step(batch).items()}
+    want_grads = grads_by_name(disp_net, pose_net)
+    want_buffers = bn_buffers(disp_net, pose_net)
+    del step, disp_net, pose_net
+    torch.cuda.empty_cache()
+    results = distributed.run_processes(two_rank_rank, 2, DEVICE, args=(seed,),
+                                        timeout=DIST_WORKER_TIMEOUT)
+    log(f"[distributed] two ranks: {results[0]['route']} on {results[0]['device']} and "
+        f"{results[1]['device']}; gradient all-reduce {results[0]['grad_allreduce_ms']:.4f} ms "
+        f"per step (10 calls; NCCL: a CUDA-graph replay, gloo: CUDA events)")
+    check_ranks(results, per_step, want, want_grads, want_buffers, "two ranks'")
     paths = {"two_ranks_rank0": results[0]["launches"]}
     if "fused" in results[0]:
         fused = [res["fused"] for res in results]
@@ -1447,13 +1562,342 @@ def distributed_phase(seed: int, smi: str, per_step: dict, per_validation: dict,
     # there is one).
     n = max(2, torch.cuda.device_count())
     t = time.perf_counter()
-    loss = graft_entry.dryrun_multigpu(n)
-    log(f"[distributed] graft_entry.dryrun_multigpu({n}) in {time.perf_counter() - t:.1f} s: "
-        f"loss {loss}")
+    loss = graft_entry.dryrun_data_parallel(n)
+    log(f"[distributed] graft_entry.dryrun_data_parallel({n}) in "
+        f"{time.perf_counter() - t:.1f} s: loss {loss}")
     if not np.isfinite(loss):
-        raise AssertionError(f"dryrun_multigpu({n}): loss {loss}")
+        raise AssertionError(f"dryrun_data_parallel({n}): loss {loss}")
     log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
     return by_path
+
+
+# The width-sharded phase (``--spatial-shards``): each image's columns split
+# over SPATIAL_SHARDS ranks (NCCL with a card each where there are that many
+# cards, else gloo with the ranks sharing card 0), held against one process
+# on the same global batch. The fp32 check runs at full width: CHECK_SHAPE's
+# 416 columns are 13 at the deepest level and cannot split in two.
+SPATIAL_DIR = os.path.join("build", "chip_smoke_spatial")
+SPATIAL_SHARDS = 2
+SPATIAL_CHECK_SHAPE = (2, 2, H, W)
+# Each rank's peak device memory over the one process's on the same global
+# batch, at most: above it some activation is kept at full width.
+SPATIAL_MEMORY_SHARE = 0.75
+SPATIAL_TIMED_STEPS = 5
+SPATIAL_CLI_EPOCH_SIZE = 4
+SPATIAL_CLI_FUSED_K = 2
+
+
+def spatial_local(batch: dict) -> dict:
+    """This rank's rows (its data group's) of a global batch, at full
+    width: the step cuts the columns."""
+    rows = distributed.local_rows(batch["tgt"].shape[0])
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def spatial_peak_gib(device, fn):
+    """``fn()``'s peak device memory above what was allocated before it, GiB."""
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, (torch.cuda.max_memory_allocated(device) - base) / 2**30
+
+
+def spatial_rank(device: torch.device, seed: int) -> dict:
+    """One width shard (``distributed.run_processes(..., spatial_shards=2)``):
+    the fp32 step on its columns of the fp32 check's batch, then the bf16
+    canonical step on its columns of B4 N2 832x256 with its peak memory,
+    its time and the spatial collectives it calls."""
+    faulthandler.dump_traceback_later(DIST_STACK_DUMP_S, exit=True)
+    disable_tf32()
+    backend = torch.distributed.get_backend()
+    rank = distributed.process_index()
+    result = {"route": f"{backend}, {torch.cuda.device_count()} card(s)", "device": str(device)}
+    disp_net, pose_net, batch = two_rank_inputs(seed, SPATIAL_CHECK_SHAPE)
+    optimizer = make_optimizer(disp_net, pose_net)
+    step = make_train_step(disp_net, pose_net, optimizer, device=device, precision="fp32")
+    distributed.replicate(disp_net, pose_net, optimizer)
+    zero_launches()
+    result["metrics"] = {k: v.item() for k, v in step(spatial_local(batch)).items()}
+    result["launches"] = read_launches()
+    result["digest"] = params_digest(disp_net, pose_net)
+    result["buffers"] = bn_buffers(disp_net, pose_net)
+    if rank == 0:
+        result["grads"] = grads_by_name(disp_net, pose_net)
+    del step, optimizer, disp_net, pose_net
+    torch.cuda.empty_cache()
+
+    disp_net, pose_net = make_nets(seed)
+    local = spatial_local(make_batch(np.random.RandomState(seed)))
+    optimizer = make_optimizer(disp_net, pose_net)
+    # Built and replicated before the peak's baseline, as the one-process
+    # step is: both peaks count the step's own memory, not the weights.
+    step = make_train_step(disp_net, pose_net, optimizer, device=device)
+    distributed.replicate(disp_net, pose_net, optimizer)
+    before = dict(distributed.spatial_collectives)
+    zero_launches()
+    result["bf16_first"], result["bf16_peak_gib"] = spatial_peak_gib(
+        device, lambda: {k: v.item() for k, v in step(local).items()})
+    result["bf16_launches"] = read_launches()
+    result["collectives_per_step"] = {
+        k: v - before[k] for k, v in distributed.spatial_collectives.items()}
+    result["bf16_step_ms"] = host_ms(lambda: step(local), SPATIAL_TIMED_STEPS)
+    faulthandler.cancel_dump_traceback_later()
+    return result
+
+
+def spatial_check_phase(seed: int, per_step: dict, smi: str) -> dict:
+    """(1) fp32 and (2) bf16 width-sharded steps against one process."""
+    # The references first: one process, the global batches, this card.
+    disp_net, pose_net, batch = two_rank_inputs(seed, SPATIAL_CHECK_SHAPE)
+    step = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+                           device=DEVICE, precision="fp32")
+    want = {k: v.item() for k, v in step(batch).items()}
+    want_grads = grads_by_name(disp_net, pose_net)
+    want_buffers = bn_buffers(disp_net, pose_net)
+    del step, disp_net, pose_net
+    torch.cuda.empty_cache()
+    disp_net, pose_net = make_nets(seed)
+    bf16_batch = make_batch(np.random.RandomState(seed))
+    step = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+                           device=DEVICE)
+    want_bf16, one_peak = spatial_peak_gib(
+        DEVICE, lambda: {k: v.item() for k, v in step(bf16_batch).items()})
+    one_ms = host_ms(lambda: step(bf16_batch), SPATIAL_TIMED_STEPS)
+    del step, disp_net, pose_net
+    torch.cuda.empty_cache()
+
+    results = distributed.run_processes(spatial_rank, SPATIAL_SHARDS, DEVICE, args=(seed,),
+                                        timeout=DIST_WORKER_TIMEOUT,
+                                        spatial_shards=SPATIAL_SHARDS)
+    log(f"[spatial] {SPATIAL_SHARDS} width shards: {results[0]['route']} on "
+        + ", ".join(r["device"] for r in results))
+    check_ranks(results, per_step, want, want_grads, want_buffers, "width shards'")
+    for r, res in enumerate(results):
+        if res["bf16_launches"] != per_step:
+            raise AssertionError(f"rank {r} bf16 launches {res['bf16_launches']}, "
+                                 f"expected {per_step}")
+        rels = {k: abs(res["bf16_first"][k] - want_bf16[k]) / max(abs(want_bf16[k]), 1e-12)
+                for k in METRICS}
+        log(f"  rank {r} bf16 B{B} N{N} {W}x{H} first step's losses {res['bf16_first']} against "
+            f"one process {want_bf16}: max rel {max(rels.values()):.2e} "
+            f"(tol {DIST_FIRST_STEP_RTOL:.0e})")
+        if not max(rels.values()) <= DIST_FIRST_STEP_RTOL:
+            raise AssertionError(f"rank {r} bf16 first step {res['bf16_first']} vs {want_bf16}")
+        share = res["bf16_peak_gib"] / one_peak
+        log(f"  rank {r} peak device memory of the bf16 step {res['bf16_peak_gib']:.3f} GiB "
+            f"against one process's {one_peak:.3f} GiB: {share:.3f} (at most "
+            f"{SPATIAL_MEMORY_SHARE}) | {smi}")
+        if not share <= SPATIAL_MEMORY_SHARE:
+            raise AssertionError(f"rank {r} keeps {share:.3f} of one process's peak memory: "
+                                 "an activation at full width")
+    log(f"[spatial] bf16 step (host clock, median of {SPATIAL_TIMED_STEPS}, each ending in "
+        f"synchronize) | {smi}: one process {one_ms:.2f} ms, width shards "
+        + ", ".join(f"{res['bf16_step_ms']:.2f}" for res in results) + f" ms ({results[0]['route']})"
+        f"; spatial collectives per step (calls on the host): "
+        f"{results[0]['collectives_per_step']}")
+    return {"spatial_fp32_rank0": results[0]["launches"],
+            "spatial_bf16_rank0": results[0]["bf16_launches"]}
+
+
+def spatial_cli_rank(device: torch.device, root: str, argv: list) -> dict:
+    """One process of the train CLI under torchrun's environment (the CLI
+    joins the group itself): its exit code and launches."""
+    faulthandler.dump_traceback_later(DIST_STACK_DUMP_S, exit=True)
+    os.chdir(root)
+    zero_launches()
+    code = train_cli.main(argv)
+    faulthandler.cancel_dump_traceback_later()
+    return {"code": code, "launches": read_launches()}
+
+
+def spatial_phase(seed: int, smi: str, per_step: dict, per_validation: dict) -> dict:
+    """(1)-(2) the width-sharded steps against one process; (3) the train CLI
+    with ``--distributed --spatial-shards 2`` under torchrun's environment
+    on phase 6's packed dataset (written again from ``--seed``), and with
+    ``--fused-steps`` where each rank has a card; (4) the data x spatial dry
+    run; (5) the wall time."""
+    t_phase = time.perf_counter()
+    by_path = spatial_check_phase(seed + 3, per_step, smi)
+
+    root = os.path.abspath(os.path.join(SPATIAL_DIR, "trainer"))
+    shutil.rmtree(root, ignore_errors=True)
+    write_packed_dataset(root, seed)
+    runs = [("spatial", "smoke_spatial", ())]
+    if torch.cuda.device_count() >= SPATIAL_SHARDS:
+        runs.append(("spatial_fused", "smoke_spatial_fused",
+                     ("--fused-steps", str(SPATIAL_CLI_FUSED_K))))
+    else:
+        log(f"[spatial] one card: the CLI refuses --fused-steps over ranks that share it "
+            "(gloo, which a CUDA graph cannot capture)")
+    want = {k: SPATIAL_CLI_EPOCH_SIZE * per_step[k] + per_validation[k] for k in WRAPPERS}
+    for path, name, extra in runs:
+        argv = [root, "--name", name, "--packed", "--device-augment", "--with-pretrain", "0",
+                "-b", str(B), "--sequence-length", str(1 + N), "--with-auto-mask", "1",
+                "--epochs", "1", "--epoch-size", str(SPATIAL_CLI_EPOCH_SIZE),
+                "--val-batches", "1", "--no-tensorboard", "--log-style", "line",
+                "--seed", str(seed), "--distributed", "--spatial-shards",
+                str(SPATIAL_SHARDS), *extra]
+        t = time.perf_counter()
+        ranks = distributed.run_processes(spatial_cli_rank, SPATIAL_SHARDS, DEVICE,
+                                          args=(root, argv), timeout=DIST_WORKER_TIMEOUT,
+                                          join=False)
+        wall = time.perf_counter() - t
+        if any(r["code"] != 0 for r in ranks):
+            raise AssertionError(f"{path}: exit codes {[r['code'] for r in ranks]}")
+        (save,) = glob.glob(os.path.join(root, "checkpoints", name, "*"))
+        rows = read_rows(os.path.join(save, "progress_log_full.csv"))
+        if len(rows) != SPATIAL_CLI_EPOCH_SIZE or not all(
+                np.isfinite(float(v)) for r in rows for v in r):
+            raise AssertionError(f"{path} progress_log_full.csv: {rows}")
+        for prefix, net in (("dispnet", DispNet(18)), ("exp_pose", PoseNet(18))):
+            net.load_state_dict(load_torch_state_dict(
+                os.path.join(save, f"{prefix}_model_best.pth.tar")))
+        for r, res in enumerate(ranks):
+            if res["launches"] != want:
+                raise AssertionError(f"{path} rank {r} launches {res['launches']}, "
+                                     f"expected {want}")
+        by_path[path] = ranks[0]["launches"]
+        log(f"[spatial] train CLI {' '.join(argv[1:])}: {len(rows)} finite loss rows "
+            f"({[round(float(r[0]), 5) for r in rows]}), weights load; launches per rank "
+            f"{ranks[0]['launches']}; {wall:.1f} s for the two processes | {smi}")
+    shutil.rmtree(root, ignore_errors=True)
+
+    n = max(2, torch.cuda.device_count() // 2 * 2)
+    t = time.perf_counter()
+    loss = graft_entry.dryrun_data_spatial(n)
+    log(f"[spatial] graft_entry.dryrun_data_spatial({n}) in {time.perf_counter() - t:.1f} s: "
+        f"loss {loss}")
+    if not np.isfinite(loss):
+        raise AssertionError(f"dryrun_data_spatial({n}): loss {loss}")
+    log(f"[spatial] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return by_path
+
+
+# The scripts phase: both parity runbooks of the port's scripts/ in their
+# SMOKE=1 mode on the card, each `python -m` step through a shim that counts
+# its kernel launches (`chip_smoke.py --count-launches`).
+SCRIPTS_DIR = os.path.join("build", "chip_smoke_scripts")
+RUNBOOKS = (("kitti_parity_runbook.sh", {"depth_frames": 4, "vo_frames": 12}),
+            ("nyu_parity_runbook.sh", {"depth_frames": 4}))
+SCRIPTS_TIMEOUT = 400  # s, each runbook
+
+
+def count_launches_main(argv) -> int:
+    """``chip_smoke.py --count-launches DIR -m MODULE ARG...``: ``python -m
+    MODULE ARG...``, then the kernel launches it made, written to
+    ``DIR/<pid>.json``; its exit code."""
+    import runpy
+
+    out_dir, flag, module = argv[:3]
+    if flag != "-m":
+        raise SystemExit("--count-launches DIR -m MODULE [ARG ...]")
+    sys.argv = [module] + list(argv[3:])
+    code = 0
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    except SystemExit as exc:
+        code = exc.code if isinstance(exc.code, int) else (0 if exc.code is None else 1)
+    finally:
+        with open(os.path.join(out_dir, f"{os.getpid()}.json"), "w") as f:
+            json.dump({"module": module,
+                       "launches": {k: fn.launches for k, fn in WRAPPERS.items()}}, f)
+    return code
+
+
+def run_runbook(name: str, scripts: str, shim_dir: str, root: str):
+    """One runbook, SMOKE=1 on the card, its lines logged as they come:
+    (exit code, its output, [(step, wall s)], wall s, work directory)."""
+    tag = name.split("_")[0]
+    work = os.path.join(root, tag)
+    env = dict(os.environ, SMOKE="1", DEVICE=DEVICE, WORK=work,
+               PATH=f"{shim_dir}:{os.environ['PATH']}")
+    t0 = last = time.perf_counter()
+    steps, out = [], []
+    proc = subprocess.Popen(["bash", os.path.join(scripts, name)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    timer = threading.Timer(SCRIPTS_TIMEOUT, proc.kill)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            line = line.rstrip().replace("\r", " ")
+            out.append(line)
+            if line.startswith("== ["):
+                now = time.perf_counter()
+                if steps:
+                    steps[-1][1] = now - last
+                steps.append([line.strip("= "), None])
+                last = now
+            log(f"  [scripts {tag}] {line}")
+        code = proc.wait()
+    finally:
+        timer.cancel()
+    if steps:
+        steps[-1][1] = time.perf_counter() - last
+    return code, "\n".join(out), steps, time.perf_counter() - t0, work
+
+
+def scripts_phase(smi: str) -> dict:
+    """Both runbooks, SMOKE=1 on the card, side by side: every step's exit
+    code (the runbooks stop at the first failure), their artifacts, each
+    step's wall time and the launches of all their processes."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(SCRIPTS_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    shim_dir, counts = os.path.join(root, "bin"), os.path.join(root, "launches")
+    os.makedirs(shim_dir)
+    os.makedirs(counts)
+    shim = os.path.join(shim_dir, "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" "{os.path.abspath(__file__)}" '
+                f'--count-launches "{counts}" "$@"\n')
+    os.chmod(shim, 0o755)
+    scripts = os.path.join(os.path.dirname(os.path.abspath(train_cli.__file__)), "scripts")
+    with ThreadPoolExecutor(len(RUNBOOKS)) as pool:
+        runs = [pool.submit(run_runbook, name, scripts, shim_dir, root) for name, _ in RUNBOOKS]
+        runs = [r.result() for r in runs]
+    for (name, expect), (code, text, steps, wall, work) in zip(RUNBOOKS, runs):
+        if code != 0 or "COMPLETE" not in text:
+            raise AssertionError(f"{name} exited {code}")
+        results = os.path.join(work, "results")
+        pred = np.load(os.path.join(results, "predictions.npy"))
+        if pred.shape[0] != expect["depth_frames"] or not np.all(np.isfinite(pred)):
+            raise AssertionError(f"{name}: predictions.npy {pred.shape}, finite "
+                                 f"{np.isfinite(pred).all()}")
+        depth_metrics = [float(v) for v in re.findall(NUMBER, text.split(" a3 |")[-1]
+                                                    .splitlines()[1])]
+        if len(depth_metrics) < 6 or not np.all(np.isfinite(depth_metrics)):
+            raise AssertionError(f"{name}: eval_depth's metrics {depth_metrics}")
+        checked = f"predictions.npy {list(pred.shape)} finite, eval_depth {depth_metrics}"
+        if "vo_frames" in expect:
+            poses = np.loadtxt(os.path.join(results, "vo", "09.txt"))
+            if poses.shape != (expect["vo_frames"], 12) or not np.all(np.isfinite(poses)):
+                raise AssertionError(f"{name}: 09.txt {poses.shape}")
+            errors = [float(printed(text, k)[-1]) for k in
+                      ("Translational error", "Rotational error", "ATE", "RPE (m)",
+                       "RPE (deg)")]
+            if not np.all(np.isfinite(errors)):
+                raise AssertionError(f"{name}: eval_odom's errors {errors}")
+            checked += f", 09.txt {list(poses.shape)}, eval_odom {errors}"
+        log(f"[scripts] {name} exit 0 in {wall:.1f} s | {smi}: {checked}; "
+            "steps (wall s): " + ", ".join(f"{s} {t:.1f}" for s, t in steps))
+    launches = {k: 0 for k in WRAPPERS}
+    modules = []
+    for path in glob.glob(os.path.join(counts, "*.json")):
+        with open(path) as f:
+            rec = json.load(f)
+        modules.append(rec["module"].rsplit(".", 1)[-1])
+        for k, v in rec["launches"].items():
+            launches[k] += v
+    log(f"[scripts] launches over the runbooks' {len(modules)} processes "
+        f"({', '.join(sorted(modules))}): {launches}")
+    if not all(launches.values()):
+        raise AssertionError(f"a kernel did not launch in the runbooks: {launches}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[scripts] phase {time.perf_counter() - t_phase:.1f} s (the two runbooks side by side) "
+        f"| {smi}")
+    return {"scripts": launches}
 
 
 # The eval phase: the evaluation and inference CLIs at full width (ResNet-18,
@@ -2592,6 +3036,13 @@ def main(argv=None) -> int:
     p.add_argument("--graph-seeds", type=int, default=0,
                    help="also repeat the fp32 graph-against-eager check, without and with "
                         "remat, from this many more seeds")
+    p.add_argument("--cpu-check-seeds", type=int, default=0,
+                   help="also repeat the fp32 train step's card-against-CPU check from this "
+                        "many more seeds, and report its worst errors and gate crossings")
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv[:1] == ["--count-launches"]:
+        return count_launches_main(argv[1:])
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2622,6 +3073,8 @@ def main(argv=None) -> int:
             log(f"[graph] seed {args.seed + 100 + s}, remat {remat}: failures {found}")
             failures += found
         torch.cuda.empty_cache()
+    if args.cpu_check_seeds:
+        failures += cpu_check_seeds(args.seed, args.cpu_check_seeds)
     log("[cli] the train CLI from a packed dataset on disk, eager and with --fused-steps")
     cli_paths, packed_times = cli_phase(args.seed, by_path["train_step"],
                                         by_path["validation_step"])
@@ -2631,6 +3084,10 @@ def main(argv=None) -> int:
     by_path.update(distributed_phase(args.seed, smi, by_path["train_step"],
                                      by_path["validation_step"], packed_times,
                                      step_device_ms))
+    log("[spatial] width-sharded steps against one process, the train CLI with "
+        "--spatial-shards 2 and the data x spatial dry run")
+    by_path.update(spatial_phase(args.seed, smi, by_path["train_step"],
+                                 by_path["validation_step"]))
     staging_phase(args.seed, rng)
     log("[eval] the evaluation and inference CLIs at full width from PNGs on disk")
     by_path.update(eval_phase(args.seed, smi))
@@ -2643,6 +3100,8 @@ def main(argv=None) -> int:
                                      by_path["validation_step"]))
     log("[tools] synthetic_scene, overfit_check, mfu_report, profile_step and ablate_step")
     by_path.update(tools_phase(args.seed, smi, by_path["train_step"], graph_device_ms))
+    log("[scripts] the port's parity runbooks, SMOKE=1, on the card")
+    by_path.update(scripts_phase(smi))
     for k in kernels:
         k["launches"] = by_path["train_cli_jpeg"][k["name"]]
         k["launches_per_train_step"] = by_path["train_step"][k["name"]]

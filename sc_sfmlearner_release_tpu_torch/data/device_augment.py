@@ -32,7 +32,9 @@ stream is deterministic for a given seed and step on any device, and a
 resumed run continues it. It is not JAX's ``jax.random`` stream. Under a
 process group (``parallel.distributed``) every process draws for the global
 batch and applies its own rows of the draws, so N processes augment as one
-process on the global batch does.
+process on the global batch does. Under width sharding the batch holds the
+data group's rows at full width, augmented whole; the train step then cuts
+each process's columns (``distributed.local_frames``).
 """
 
 from __future__ import annotations
@@ -84,7 +86,7 @@ def sample_draws(generator: torch.Generator, batch_size: int, cfg: AugmentConfig
 def local_draws(generator: torch.Generator, batch_size: int, cfg: AugmentConfig) -> Batch:
     """This process's rows of the draws for the global batch of which its
     ``batch_size`` rows are a slice (all of them without a process group)."""
-    global_batch = batch_size * distributed.process_count()
+    global_batch = batch_size * distributed.data_count()
     rows = distributed.local_rows(global_batch)
     return {k: v[rows] for k, v in sample_draws(generator, global_batch, cfg).items()}
 

@@ -62,6 +62,9 @@ class BatchLoader:
         train CLI's ``--distributed``): each process loads only its
         contiguous ``batch_size / process_count`` slice of every global
         batch, rows ``process_index * b ... (process_index + 1) * b - 1``.
+        Under width sharding the trainer passes its data group's index and
+        count: the processes of a group load the same rows at full width,
+        and the steps cut the columns (``distributed.local_frames``).
     """
 
     def __init__(

@@ -179,7 +179,7 @@ class PackedSequenceSet:
         return {"tgt": tgt, "refs": np.stack(refs), "intrinsics": intrinsics}
 
 
-def main(argv=None) -> None:
+def build_parser():
     import argparse
 
     p = argparse.ArgumentParser(
@@ -188,7 +188,11 @@ def main(argv=None) -> None:
     )
     p.add_argument("root", help="prepared dataset root (train.txt + scenes)")
     p.add_argument("--out", default=None, help="output dir (default <root>/packed)")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
     out = pack_dataset(args.root, args.out)
     with open(os.path.join(out, INDEX_NAME)) as f:
         idx = json.load(f)

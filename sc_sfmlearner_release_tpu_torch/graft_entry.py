@@ -11,7 +11,10 @@ The port's counterpart of the repository's ``__graft_entry__.py``:
     when the machine has ``n`` cards, otherwise over gloo with processes
     sharing cards; with ``device="cpu"`` over gloo on the CPU (the
     counterpart of the JAX dry run's re-exec onto an ``n``-device virtual
-    CPU mesh). It prints which ran.
+    CPU mesh). It prints which ran. It is :func:`dryrun_data_parallel`,
+    then, with ``n`` even, the step again over a data x spatial-2 split
+    (:func:`dryrun_data_spatial`: the JAX dry run's ``make_mesh_2d(2)``
+    mesh, ``--spatial-shards 2``).
 
     python -m sc_sfmlearner_release_tpu_torch.graft_entry [N] [--device cpu]
 """
@@ -43,24 +46,48 @@ def entry():
 
 def dryrun_multigpu(n_devices: int, device="cuda") -> float:
     """One full train step over ``n_devices`` processes; returns its loss.
+    With ``n_devices`` even, then :func:`dryrun_data_spatial`.
 
     On CUDA (the default) over NCCL with one card per process where there
     are ``n_devices`` cards, else over gloo with processes sharing cards;
     on the CPU (``device="cpu"``) over gloo. Raises when CUDA is asked for
     and absent, when a process fails, or when the loss is not finite."""
+    loss = dryrun_data_parallel(n_devices, device)
+    if n_devices % 2 == 0:
+        dryrun_data_spatial(n_devices, device)
+    return loss
+
+
+def dryrun_data_parallel(n_devices: int, device="cuda") -> float:
+    """The dry run's step over ``n_devices`` data-parallel processes;
+    returns its loss."""
+    return _dryrun(n_devices, device, 1)
+
+
+def dryrun_data_spatial(n_devices: int, device="cuda") -> float:
+    """The dry run's step over ``n_devices / 2`` data groups of 2 width
+    shards each; returns its loss."""
+    return _dryrun(n_devices, device, 2)
+
+
+def _dryrun(n_devices: int, device, spatial_shards: int) -> float:
     from .parallel import distributed
 
     loss, backend = distributed.run_processes(_dryrun_rank, n_devices, device,
-                                              args=(n_devices,))[0]
+                                              args=(n_devices,),
+                                              spatial_shards=spatial_shards)[0]
     where = f"{n_devices} CPU processes" if torch.device(device).type == "cpu" else (
         f"{n_devices} processes on {torch.cuda.device_count()} card(s)")
-    print(f"dryrun_multigpu(n={n_devices}, {backend} over {where}): OK, loss={loss:.4f}",
-          flush=True)
+    split = (f", data{n_devices // spatial_shards} x spatial{spatial_shards}"
+             if spatial_shards > 1 else "")
+    print(f"dryrun_multigpu(n={n_devices}{split}, {backend} over {where}): OK, "
+          f"loss={loss:.4f}", flush=True)
     return loss
 
 
 def _dryrun_rank(dev: torch.device, n_devices: int):
-    """One rank of the dry run: ``(loss, backend)``."""
+    """One rank of the dry run: ``(loss, backend)``. It takes its data
+    group's rows at full width; the step cuts its columns."""
     from torch import distributed as dist
 
     from .data.device_augment import AugmentConfig, make_device_augment

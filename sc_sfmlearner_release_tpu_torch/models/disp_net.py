@@ -6,7 +6,9 @@ upsampling with encoder skips, and per-scale heads
 ``disp = 10 * sigmoid(x) + 0.01``. Returns 4 scales, fine to coarse.
 Parameter names follow the reference checkpoint (``decoder.decoder.<i>``).
 Only the unpacked math is ported; the JAX package's lane-packed decoder
-computes the same numbers.
+computes the same numbers. Under width sharding (``parallel/spatial.py``)
+the pads take their halos from the neighbouring shards; the nearest
+upsampling and the skip concatenations stay on the shard's own columns.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.spatial import reflect_pad1
 from .resnet import ResNetEncoder, default_generator, encoder_channels, torch_default_conv_init_
 
 ALPHA = 10.0
@@ -25,18 +28,9 @@ DEC_CHANNELS = (16, 32, 64, 128, 256)
 SCALES = (0, 1, 2, 3)
 
 
-def reflect_pad1(x: torch.Tensor) -> torch.Tensor:
-    """Reflect-pad the last two axes by 1. A size-1 axis (the deepest
-    feature map of a 32-row image) replicates its only element, as numpy's
-    and the JAX package's reflect do; ``F.pad`` refuses it."""
-    if x.shape[-1] > 1 and x.shape[-2] > 1:
-        return F.pad(x, (1, 1, 1, 1), mode="reflect")
-    x = F.pad(x, (1, 1, 0, 0), mode="reflect" if x.shape[-1] > 1 else "replicate")
-    return F.pad(x, (0, 0, 1, 1), mode="reflect" if x.shape[-2] > 1 else "replicate")
-
-
 class Conv3x3(nn.Module):
-    """Reflection-pad 1, then a 3x3 valid conv."""
+    """Reflection-pad 1, then a 3x3 valid conv (``parallel/spatial.py``'s
+    pad: under width sharding the halo inside the image)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()

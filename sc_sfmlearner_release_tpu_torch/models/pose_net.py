@@ -4,7 +4,9 @@ The counterpart of the JAX package's ``models/pose_net.py``: a 2-image
 ResNet encoder (6-channel input), then a 1x1 squeeze to 256 + ReLU, two 3x3
 convs + ReLU, a 1x1 conv to 6 channels, the mean over H and W, times 0.01.
 Output ``[B, 6]`` = (tx, ty, tz, rx, ry, rz), target -> source. Parameter
-names follow the reference checkpoint (``decoder.net.<i>``).
+names follow the reference checkpoint (``decoder.net.<i>``). Under width
+sharding (``parallel/spatial.py``) the 3x3 convs take halos and the mean
+is over the whole width: every shard of a data group has the same pose.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import spatial
 from .resnet import ResNetEncoder, default_generator, encoder_channels, torch_default_conv_init_
 
 
@@ -30,10 +33,10 @@ class PoseDecoder(nn.Module):
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.net[0](feat))
-        x = F.relu(self.net[1](x))
-        x = F.relu(self.net[2](x))
+        x = F.relu(spatial.conv2d(x, self.net[1]))
+        x = F.relu(spatial.conv2d(x, self.net[2]))
         x = self.net[3](x)
-        return 0.01 * x.float().mean(dim=(2, 3)).reshape(-1, 6)
+        return 0.01 * spatial.mean_hw(x.float(), 2, 3).reshape(-1, 6)
 
 
 class PoseNet(nn.Module):

@@ -10,6 +10,10 @@ reference's. Only the unpacked math is ported.
 
 BatchNorm computes in fp32 whatever its input dtype: convolutions may run
 in bf16 under autocast, the normalization does not.
+
+Under width sharding (``parallel/spatial.py``) ``conv1``, the max-pool and
+every 3x3 convolution take their halos from the neighbouring shards; the
+1x1 convolutions (the stride-2 downsample too) need none.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel import distributed
+from ..parallel import distributed, spatial
 
 STAGE_BLOCKS = {
     18: (2, 2, 2, 2),
@@ -116,9 +120,11 @@ def _channels(v: torch.Tensor) -> torch.Tensor:
 
 class _GlobalBatchNorm(torch.autograd.Function):
     """Train-mode batch normalization of ``x`` ``[N, C, H, W]`` (fp32) over
-    the global batch, whose other rows lie on the other processes; every
-    process holds as many rows (the loader's slices are equal), so the
-    global statistics are the means of the processes' own.
+    the global batch, whose other rows (and, under width sharding, other
+    columns) lie on the other processes; every process holds as many
+    values per channel (the loader's row slices are equal, and so are the
+    column slices), so the global statistics are the means of the
+    processes' own.
 
     Forward: this process's per-channel mean and mean of squares, summed
     over processes in one all-reduce; the global mean and biased variance,
@@ -201,8 +207,8 @@ class BasicBlock(nn.Module):
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = F.relu(self.bn1(spatial.conv2d(x, self.conv1)))
+        out = self.bn2(spatial.conv2d(out, self.conv2))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
 
@@ -225,7 +231,7 @@ class Bottleneck(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
+        out = F.relu(self.bn2(spatial.conv2d(out, self.conv2)))
         out = self.bn3(self.conv3(out))
         identity = x if self.downsample is None else self.downsample(x)
         return F.relu(out + identity)
@@ -283,8 +289,8 @@ class ResNetEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         e = self.encoder
-        feats = [F.relu(e.bn1(e.conv1(x)))]
-        feats.append(e.layer1(e.maxpool(feats[-1])))
+        feats = [F.relu(e.bn1(spatial.conv2d(x, e.conv1)))]
+        feats.append(e.layer1(spatial.max_pool2d(feats[-1], e.maxpool)))
         feats.append(e.layer2(feats[-1]))
         feats.append(e.layer3(feats[-1]))
         feats.append(e.layer4(feats[-1]))

@@ -11,6 +11,12 @@ The counterpart of the JAX package's ``ops/geometry.py``, with its layouts:
 The contractions are fp32 and precision-critical; the entry points turn
 TF32 off (``disable_tf32``), the analogue of JAX's ``Precision.HIGHEST``.
 There is one sampler, the warp kernel of ``ops/warp.py``.
+
+Under width sharding (``parallel/spatial.py``) a process holds a column
+slice of the target frame: its pixels carry their image columns, the
+projection normalises by the image's width, and the warps sample the
+source gathered to its whole width (``distributed.gather_width``), whose
+gradient goes back to the shards it came from.
 """
 
 from __future__ import annotations
@@ -19,14 +25,16 @@ from typing import Tuple
 
 import torch
 
+from ..parallel import distributed, spatial
 from .warp import warp_sample
 
 
-def pixel_grid(h: int, w: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Homogeneous pixel coordinates ``[H, W, 3]`` with entries (x, y, 1)."""
+def pixel_grid(h: int, w: int, dtype=torch.float32, device=None, x0: int = 0) -> torch.Tensor:
+    """Homogeneous pixel coordinates ``[H, W, 3]`` with entries (x, y, 1),
+    x counted from column ``x0``."""
     ys, xs = torch.meshgrid(
         torch.arange(h, dtype=dtype, device=device),
-        torch.arange(w, dtype=dtype, device=device),
+        torch.arange(x0, x0 + w, dtype=dtype, device=device),
         indexing="ij",
     )
     return torch.stack([xs, ys, torch.ones_like(xs)], dim=-1)
@@ -62,7 +70,7 @@ def _transform(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def pixel2cam(depth: torch.Tensor, intrinsics_inv: torch.Tensor) -> torch.Tensor:
     """Backproject ``depth`` ``[B, H, W]`` into camera points ``[B, H, W, 3]``."""
     _, h, w = depth.shape
-    grid = pixel_grid(h, w, depth.dtype, depth.device)
+    grid = pixel_grid(h, w, depth.dtype, depth.device, spatial.column_offset(w))
     rays = torch.einsum("bij,hwj->bhwi", intrinsics_inv, grid)
     return rays * depth[..., None]
 
@@ -78,6 +86,7 @@ def cam2pixel(
     blends frame content with padding.
     """
     _, h, w, _ = cam_coords.shape
+    w = spatial.global_width(w)
     rot, tr = proj[:, :, :3], proj[:, :, 3]
     p = _transform(rot, cam_coords) + tr[:, None, None, :]
     x, y = p[..., 0], p[..., 1]
@@ -175,6 +184,7 @@ def inverse_warp(
     cam_coords = pixel2cam(depth, inv3x3(intrinsics))
     proj = intrinsics @ pose_vec2mat(pose, rotation_mode)
     coords, _ = cam2pixel(cam_coords, proj, padding_mode)
+    img = distributed.gather_width(img, 2)
     projected = warp_sample(img.contiguous(), coords.contiguous(), padding_mode)
     valid = coords.abs().amax(dim=-1) <= 1.0
     return projected, valid
@@ -204,8 +214,10 @@ def inverse_warp2(
     backward launch returns d(coords) and d(source depth).
     """
     coords, computed_depth = project_pixel_coords(depth, pose, intrinsics, padding_mode)
-    sampled = warp_sample(ref_depth.float().contiguous(), coords.contiguous(), padding_mode,
-                          frozen=img.detach().float().contiguous())
+    src_depth = distributed.gather_width(ref_depth.float(), 2)
+    src_img = distributed.gather_width(img.detach().float(), 2)
+    sampled = warp_sample(src_depth.contiguous(), coords.contiguous(), padding_mode,
+                          frozen=src_img.contiguous())
     projected_depth = sampled[..., 0:1].to(ref_depth.dtype)
     projected_img = sampled[..., 1:].to(img.dtype)
     valid = (coords.abs().amax(dim=-1) <= 1.0).to(img.dtype)

@@ -18,7 +18,12 @@ batch's, as the JAX program's over a data mesh: each process divides its
 own sum by the global denominator (the masks' and counts' sum over
 processes, which carries no gradient) and applies the 10000-element guard
 to the global mask sum, so its loss is its share of the global loss and
-the shares' gradients add up to the global loss's.
+the shares' gradients add up to the global loss's. Under width sharding
+(``parallel/spatial.py``) the shares are also column slices: the masked
+means need nothing more, SSIM takes a halo (``ssim_nchw_sharded``), and
+the smoothness term takes its horizontal differences across the shards'
+edges, its depth mean over the whole image and its counts of the whole
+image.
 """
 
 from __future__ import annotations
@@ -27,9 +32,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..parallel import distributed
+from ..parallel import distributed, spatial
 from .geometry import inverse_warp2
-from .ssim import ssim_nchw
+from .ssim import ssim_nchw_sharded
 
 # The reference trusts a masked mean only when the valid region holds more
 # than 10000 elements (after the channel broadcast).
@@ -152,7 +157,7 @@ def photo_and_geometry_loss(
             valid_c = (warped_err < static_err).to(valid_c.dtype) * valid_c
 
         if with_ssim:
-            diff_img = 0.15 * diff_img + 0.85 * ssim_nchw(tgt_c, warped_c)
+            diff_img = 0.15 * diff_img + 0.85 * ssim_nchw_sharded(tgt_c, warped_c)
 
         if with_mask:
             diff_img = diff_img * (1.0 - diff_depth)
@@ -163,31 +168,43 @@ def photo_and_geometry_loss(
     return photo_total, geom_total
 
 
-def _sample_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Mean over ``[B, ...]`` restricted to samples of weight 1."""
+def _sample_mean(x: torch.Tensor, sample_mask: Optional[torch.Tensor],
+                 per_sample: Optional[int] = None) -> torch.Tensor:
+    """Mean over ``[B, ...]`` restricted to samples of weight 1.
+    ``per_sample`` is the element count of a whole sample where ``x``
+    holds a column slice of it (width sharding); ``x``'s own by default."""
+    if per_sample is None:
+        per_sample = x.numel() // x.shape[0]
     if sample_mask is None:
         if distributed.is_distributed():
-            return x.sum() / (x.numel() * distributed.process_count())
+            return x.sum() / (per_sample * x.shape[0] * distributed.data_count())
         return x.mean()
     wgt = sample_mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
-    per_sample = x.numel() // x.shape[0]
     count = distributed.global_sum(wgt.sum())
+    if distributed.spatial_count() > 1:  # every shard of a data group counted its rows
+        count = count / distributed.spatial_count()
     return (x * wgt).sum() / (torch.clamp(count, min=1.0) * per_sample)
 
 
 def _smooth_one(
     depth: torch.Tensor, img: torch.Tensor, sample_mask: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Edge-aware smoothness of one frame group ``[B, H, W, 1]`` -> scalar."""
-    mean_d = depth.mean(dim=(1, 2), keepdim=True)
+    """Edge-aware smoothness of one frame group ``[B, H, W, 1]`` -> scalar.
+    Under width sharding each shard but the last owns the difference across
+    its right edge, from the right neighbour's first column."""
+    mean_d = spatial.mean_hw(depth, 1, 2, keepdim=True)
     norm_d = depth / (mean_d + 1e-7)
-    grad_dx = (norm_d[:, :, :-1] - norm_d[:, :, 1:]).abs()
+    nd_x, img_x = norm_d, img
+    if distributed.spatial_count() > 1:
+        wide = distributed.halo(torch.cat([norm_d, img], -1), 0, 1, dim=2)
+        nd_x, img_x = wide[..., :1], wide[..., 1:]
+    grad_dx = (nd_x[:, :, :-1] - nd_x[:, :, 1:]).abs()
     grad_dy = (norm_d[:, :-1] - norm_d[:, 1:]).abs()
-    grad_ix = (img[:, :, :-1] - img[:, :, 1:]).abs().mean(dim=-1, keepdim=True)
+    grad_ix = (img_x[:, :, :-1] - img_x[:, :, 1:]).abs().mean(dim=-1, keepdim=True)
     grad_iy = (img[:, :-1] - img[:, 1:]).abs().mean(dim=-1, keepdim=True)
-    return _sample_mean(grad_dx * torch.exp(-grad_ix), sample_mask) + _sample_mean(
-        grad_dy * torch.exp(-grad_iy), sample_mask
-    )
+    h, w, c = depth.shape[1], spatial.global_width(depth.shape[2]), depth.shape[3]
+    return _sample_mean(grad_dx * torch.exp(-grad_ix), sample_mask, h * (w - 1) * c) + \
+        _sample_mean(grad_dy * torch.exp(-grad_iy), sample_mask, (h - 1) * w * c)
 
 
 def smooth_loss(

@@ -8,7 +8,10 @@ element on even counts) instead of boolean indexing.
 
 Under a process group (``parallel.distributed``) the batch means are the
 global batch's: each process holds its rows of it, and the sums and the
-count of valid images are summed over processes in one collective.
+count of valid images are summed over processes in one collective. Under
+width sharding the shards of a data group hold the same whole rows (the
+eval step gathers the prediction to full width): each adds them to the
+sums and to the count alike, which leaves the means as they are.
 """
 
 from __future__ import annotations
@@ -97,7 +100,7 @@ def compute_depth_errors(
     if n_valid is None and not distributed.is_distributed():
         return {k: v.mean() for k, v in per_image.items()}
     # The sums over the valid rows of the global batch, and their count.
-    valid_rows = b * distributed.process_count() if n_valid is None else int(n_valid)
+    valid_rows = b * distributed.data_count() if n_valid is None else int(n_valid)
     w_s = (distributed.global_rows(b, gt.device) < valid_rows).to(gt.dtype)
     sums = distributed.global_sum(
         torch.stack([(v * w_s).sum() for v in per_image.values()] + [w_s.sum()]))

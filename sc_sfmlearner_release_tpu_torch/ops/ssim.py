@@ -10,7 +10,8 @@ that need a gradient it goes through an autograd Function whose backward
 launches ``csrc/ssim_bwd.cu`` (``ssim_nchw_bwd``): d/dy, and d/dx only when
 x needs one. ``ssim_nchw_bwd_plain`` is that kernel's algorithm in tensor
 ops, which ``ssim_nchw_bwd`` runs on CPU tensors. There is no fallback to
-the plain path on a CUDA tensor.
+the plain path on a CUDA tensor. ``ssim_nchw_sharded`` is the map of
+width-sharded images (``parallel/spatial.py``), through the same kernels.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import distributed
 from . import _build
 
 C1 = 0.01**2
@@ -196,3 +198,20 @@ def ssim_nchw(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 ssim_nchw.launches = 0
+
+
+def ssim_nchw_sharded(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """:func:`ssim_nchw` of this shard's columns of width-sharded images:
+    the x and y tiles widened by one halo column on their inner sides (one
+    exchange for both), the map of the widened tiles cropped back. The
+    kernels' own reflect pad then falls on columns the crop drops, or on
+    the image's edges. ``ssim_nchw`` without width sharding."""
+    if distributed.spatial_count() == 1:
+        return ssim_nchw(x, y)
+    c, w = x.shape[1], x.shape[-1]
+    xy = distributed.halo(torch.cat([x, y], 1), 1, 1)
+    xe, ye = xy[:, :c], xy[:, c:]
+    if not x.requires_grad:  # no d/dx from the backward kernel
+        xe = xe.detach()
+    first = 1 if distributed.spatial_index() > 0 else 0
+    return ssim_nchw(xe.contiguous(), ye.contiguous())[..., first:first + w]

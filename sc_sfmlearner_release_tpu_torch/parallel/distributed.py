@@ -28,8 +28,22 @@ the group that ``torchrun`` describes: NCCL on CUDA, gloo on the CPU.
 returns what each rank computed. :func:`replicate` broadcasts process 0's networks and optimizer state, so
 no process depends on seeding or restoring the same state as the others.
 
-``make_mesh_2d`` and ``--spatial-shards`` (width-sharded model parallelism
-through GSPMD's halo exchanges) are not ported.
+Width sharding (the counterpart of ``make_mesh_2d``/``_spec_for`` and the
+train CLI's ``--spatial-shards S``): :func:`init_distributed` with
+``spatial_shards=S`` splits the world as ``make_mesh_2d`` reshapes its
+devices, ``(world // S, S)``: rank ``r`` has data index ``r // S`` and
+spatial index ``r % S``, and the S adjacent ranks of a data group share its
+rows, each holding one equal column slice of every image. The rows of the
+global batch go by data index (:func:`local_rows`, :func:`global_rows`,
+the loader), the columns by spatial index (:func:`local_columns`; the
+steps cut their input frames in one place, :func:`local_frames`), and the
+collectives that GSPMD inserts become autograd Functions within the data
+group's spatial group: :func:`halo` (edge columns of the neighbours),
+:func:`gather_width` (the whole width) and :func:`spatial_sum`
+(``parallel/spatial.py`` builds the halo-aware convolutions, pads and
+pools on them). They are all-gathers and all-reduces, never point-to-point
+sends, which gloo refuses on CUDA tensors. With S = 1 each is the
+identity, and the data index and count are the process's.
 """
 
 from __future__ import annotations
@@ -63,6 +77,49 @@ def process_count() -> int:
     return dist.get_world_size() if is_distributed() else 1
 
 
+# The spatial split of the world (init_distributed's spatial_shards): the
+# number of column slices per image and this process's spatial group.
+_SPATIAL = {"count": 1, "group": None}
+
+
+def spatial_count() -> int:
+    """Column slices per image: the processes that share each row (1
+    without width sharding)."""
+    return _SPATIAL["count"]
+
+
+def spatial_index() -> int:
+    """This process's column slice, ``0 ... spatial_count() - 1``."""
+    return process_index() % spatial_count()
+
+
+def data_count() -> int:
+    """The data groups: processes that hold distinct rows."""
+    return process_count() // spatial_count()
+
+
+def data_index() -> int:
+    """This process's data group: which rows of the global batch it holds."""
+    return process_index() // spatial_count()
+
+
+def _split_spatial(spatial_shards: int) -> None:
+    """Spatial groups of ``spatial_shards`` adjacent ranks (every rank
+    creates every group, as ``new_group`` needs); the world's own group
+    where it is one."""
+    world, rank = process_count(), process_index()
+    if spatial_shards < 1 or world % spatial_shards:
+        raise ValueError(f"--spatial-shards {spatial_shards} must divide the world size "
+                         f"{world}")
+    group = None
+    if 1 < spatial_shards < world:
+        for first in range(0, world, spatial_shards):
+            g = dist.new_group(list(range(first, first + spatial_shards)))
+            if first <= rank < first + spatial_shards:
+                group = g
+    _SPATIAL.update(count=spatial_shards, group=group)
+
+
 def backend_for(device) -> str:
     """The process group's backend for ranks on ``device``: NCCL on CUDA,
     unless this host's ranks (``LOCAL_WORLD_SIZE``, else ``WORLD_SIZE``)
@@ -74,10 +131,12 @@ def backend_for(device) -> str:
     return "gloo" if ranks > torch.cuda.device_count() else "nccl"
 
 
-def init_distributed(device="cuda") -> torch.device:
+def init_distributed(device="cuda", spatial_shards: int = 1) -> torch.device:
     """Join the process group of torchrun's environment (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) and
-    return this process's device.
+    return this process's device; with ``spatial_shards`` S > 1, split it
+    into data groups of S adjacent ranks that share their rows (S must
+    divide the world size: a ValueError, after which the group is left).
 
     On CUDA the process binds ``cuda:LOCAL_RANK`` before it joins (and
     before anything else of the process should touch the card). The
@@ -105,6 +164,11 @@ def init_distributed(device="cuda") -> torch.device:
         backend_for(device),
         init_method=f"tcp://{os.environ['MASTER_ADDR']}:{os.environ['MASTER_PORT']}",
         rank=rank, world_size=world)
+    try:
+        _split_spatial(spatial_shards)
+    except ValueError:
+        leave()
+        raise
     return device
 
 
@@ -113,6 +177,7 @@ def leave() -> None:
     is destroyed only once no CUDA graph holds its collectives (until then
     the destruction waits): the graphs the caller dropped are collected
     first."""
+    _SPATIAL.update(count=1, group=None)
     if is_distributed():
         gc.collect()
         dist.destroy_process_group()
@@ -126,17 +191,44 @@ def barrier() -> None:
 
 def local_rows(global_batch: int) -> slice:
     """This process's contiguous slice of a global batch: rows
-    ``p * b ... (p + 1) * b - 1`` of process ``p``, ``b`` the local batch."""
-    count = process_count()
+    ``d * b ... (d + 1) * b - 1`` of data group ``d`` (the process itself
+    without width sharding), ``b`` the local batch."""
+    count = data_count()
     if global_batch % count:
-        raise ValueError(f"global batch {global_batch} not divisible by {count} processes")
+        raise ValueError(f"global batch {global_batch} not divisible by {count} data groups")
     b = global_batch // count
-    return slice(process_index() * b, (process_index() + 1) * b)
+    return slice(data_index() * b, (data_index() + 1) * b)
 
 
 def global_rows(local_batch: int, device=None) -> torch.Tensor:
     """The global row numbers of this process's ``local_batch`` rows."""
-    return process_index() * local_batch + torch.arange(local_batch, device=device)
+    return data_index() * local_batch + torch.arange(local_batch, device=device)
+
+
+def local_columns(width: int) -> slice:
+    """This process's column slice of an image ``width`` wide: the
+    ``width / S`` columns of spatial index ``s``."""
+    count = spatial_count()
+    if width % count:
+        raise ValueError(f"width {width} not divisible by {count} spatial shards")
+    w = width // count
+    return slice(spatial_index() * w, (spatial_index() + 1) * w)
+
+
+# The entries of a batch that width sharding cuts, ``[..., H, W, C]``: the
+# frames, not the intrinsics or the ground-truth depth.
+FRAME_KEYS = ("tgt", "refs", "img")
+
+
+def local_frames(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``batch`` (the data group's rows at full width) with its frames cut
+    to this process's columns, every other entry as it is: where the train
+    and eval steps cut their inputs, after the device augmentation. The
+    batch itself without width sharding."""
+    if spatial_count() == 1:
+        return batch
+    return {k: v[..., local_columns(v.shape[-2]), :].contiguous() if k in FRAME_KEYS else v
+            for k, v in batch.items()}
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
@@ -148,6 +240,124 @@ def global_sum(x: torch.Tensor) -> torch.Tensor:
     x = x.detach()
     dist.all_reduce(x)
     return x
+
+
+# Collectives the width-sharding helpers have called in the spatial group
+# (all-gathers and all-reduces, forward and backward), counted on the host:
+# a CUDA graph's replays call none.
+spatial_collectives = {"all_gather": 0, "all_reduce": 0}
+
+
+def _gather(x: torch.Tensor) -> List[torch.Tensor]:
+    """Every spatial shard's ``x`` (the same shape on each), in spatial order."""
+    spatial_collectives["all_gather"] += 1
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(spatial_count())]
+    dist.all_gather(parts, x, group=_SPATIAL["group"])
+    return parts
+
+
+def _spatial_all_reduce(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the spatial group, into a copy."""
+    spatial_collectives["all_reduce"] += 1
+    x = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(x, group=_SPATIAL["group"])
+    return x
+
+
+class _Halo(torch.autograd.Function):
+    """``x``'s columns along ``dim`` widened by the last ``left`` columns
+    of the left neighbour and the first ``right`` of the right one, where
+    those neighbours exist (not at the image's edges). One all-gather of
+    every shard's edge strips; the backward sends the halo's gradient back
+    by another and adds it into the edges it came from."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, dim):
+        w, i, s = x.shape[dim], spatial_index(), spatial_count()
+        if left > w or right > w:
+            raise ValueError(f"a halo of {left} and {right} columns from a shard of {w}")
+        parts = _gather(torch.cat([x.narrow(dim, 0, right), x.narrow(dim, w - left, left)],
+                                  dim))
+        lo, hi = (left if i > 0 else 0), (right if i < s - 1 else 0)
+        ctx.shape = (w, left, right, lo, hi, dim)
+        pieces = ([parts[i - 1].narrow(dim, right, lo)] if lo else []) + [x] + (
+            [parts[i + 1].narrow(dim, 0, hi)] if hi else [])
+        return torch.cat(pieces, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        w, left, right, lo, hi, dim = ctx.shape
+        i = spatial_index()
+
+        def strip(start, length, full):
+            if length:
+                return g.narrow(dim, start, length)
+            shape = list(g.shape)
+            shape[dim] = full
+            return g.new_zeros(shape)
+
+        parts = _gather(torch.cat([strip(0, lo, left), strip(lo + w, hi, right)], dim))
+        dx = g.narrow(dim, lo, w).clone(memory_format=torch.contiguous_format)
+        if i < spatial_count() - 1 and left:  # the right neighbour's left halo
+            dx.narrow(dim, w - left, left).add_(parts[i + 1].narrow(dim, 0, left))
+        if i > 0 and right:  # the left neighbour's right halo
+            dx.narrow(dim, 0, right).add_(parts[i - 1].narrow(dim, left, right))
+        return dx, None, None, None
+
+
+class _GatherWidth(torch.autograd.Function):
+    """Every shard's ``x`` concatenated along ``dim`` in spatial order (the
+    whole width); the backward sums the gradient over the spatial group and
+    keeps this shard's columns."""
+
+    @staticmethod
+    def forward(ctx, x, dim):
+        ctx.dim, ctx.width = dim, x.shape[dim]
+        return torch.cat(_gather(x), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _spatial_all_reduce(g).narrow(
+            ctx.dim, spatial_index() * ctx.width, ctx.width), None
+
+
+class _SpatialSum(torch.autograd.Function):
+    """``x`` summed over the spatial group; every shard's result depends on
+    every shard's ``x``, so the backward sums the gradient the same way."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _spatial_all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _spatial_all_reduce(g)
+
+
+def halo(x: torch.Tensor, left: int, right: int, dim: int = -1) -> torch.Tensor:
+    """``x`` widened along ``dim`` by the neighbouring shards' ``left`` and
+    ``right`` edge columns (none beyond the image's edges: the caller pads
+    those); differentiable. ``x`` itself without width sharding."""
+    if spatial_count() == 1 or not (left or right):
+        return x
+    return _Halo.apply(x, left, right, dim % x.dim())
+
+
+def gather_width(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole width of a width-sharded ``x`` along ``dim`` on every shard
+    of the data group; differentiable. ``x`` without width sharding."""
+    if spatial_count() == 1:
+        return x
+    return _GatherWidth.apply(x, dim % x.dim())
+
+
+def spatial_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the shards of the data group; differentiable. ``x``
+    without width sharding."""
+    if spatial_count() == 1:
+        return x
+    return _SpatialSum.apply(x)
 
 
 def _copy_back(flat: torch.Tensor, tensors: List[torch.Tensor]) -> None:
@@ -227,10 +437,14 @@ def free_port() -> int:
 
 
 def run_processes(fn: Callable, n: int, device="cuda", args: tuple = (),
-                  timeout: float = 600.0) -> list:
+                  timeout: float = 600.0, spatial_shards: int = 1,
+                  join: bool = True) -> list:
     """``fn(device, *args)`` in ``n`` new processes, ranks ``0 ... n-1`` of
-    one process group on this host; returns each rank's return value, in
-    rank order.
+    one process group on this host (split into data groups of
+    ``spatial_shards`` ranks); returns each rank's return value, in rank
+    order. With ``join=False`` each process gets torchrun's environment
+    but joins no group: ``fn`` joins it, as the train CLI's ``--distributed``
+    does, and ``device`` is only the device type.
 
     On CUDA rank ``r`` runs on card ``r % cards``: over NCCL where there
     are ``n`` cards or more, else over gloo with ranks sharing cards
@@ -246,7 +460,9 @@ def run_processes(fn: Callable, n: int, device="cuda", args: tuple = (),
     device = resolve_device(device)
     port = free_port()
     with tempfile.TemporaryDirectory(prefix="ranks") as out:
-        ctx = mp.start_processes(_run_rank, args=(fn, n, device.type, port, out, args),
+        ctx = mp.start_processes(_run_rank,
+                                 args=(fn, n, device.type, port, out, args, spatial_shards,
+                                       join),
                                  nprocs=n, start_method="spawn", join=False)
         deadline = time.monotonic() + timeout
         try:
@@ -263,7 +479,7 @@ def run_processes(fn: Callable, n: int, device="cuda", args: tuple = (),
 
 
 def _run_rank(rank: int, fn: Callable, n: int, device_type: str, port: int, out: str,
-              args: tuple) -> None:
+              args: tuple, spatial_shards: int, join: bool) -> None:
     """One rank of :func:`run_processes`: torchrun's environment, the group,
     ``fn``, and its value saved into ``out``."""
     local = rank % torch.cuda.device_count() if device_type == "cuda" else rank
@@ -272,7 +488,8 @@ def _run_rank(rank: int, fn: Callable, n: int, device_type: str, port: int, out:
                        "MASTER_PORT": str(port)})
     if device_type == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
-    device = init_distributed(device_type)
+    device = init_distributed(device_type, spatial_shards) if join else torch.device(
+        device_type)
     try:
         torch.save(fn(device, *args), os.path.join(out, f"rank{rank}.pt"))
         barrier()

@@ -202,14 +202,18 @@ def make_odom(root: str, h: int, w: int, n: int, seq: str) -> None:
     np.savetxt(os.path.join(gt_dir, f"{seq}.txt"), np.asarray(poses))
 
 
-def main(argv=None) -> int:
+def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("out")
     p.add_argument("--height", type=int, default=64)
     p.add_argument("--width", type=int, default=128)
     p.add_argument("--frames", type=int, default=12)
     p.add_argument("--seq", default="09")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     make_raw(os.path.join(args.out, "raw"), args.height, args.width, args.frames)
     make_depth_test(os.path.join(args.out, "depth_test"), args.height,

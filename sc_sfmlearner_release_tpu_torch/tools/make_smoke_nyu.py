@@ -83,14 +83,18 @@ def make_test(root: str, h: int, w: int, n: int) -> None:
     np.save(os.path.join(root, "depth.npy"), np.stack(depths))
 
 
-def main(argv=None) -> int:
+def build_parser():
     p = argparse.ArgumentParser()
     p.add_argument("out")
     p.add_argument("--height", type=int, default=64)
     p.add_argument("--width", type=int, default=96)
     p.add_argument("--scenes", type=int, default=2)
     p.add_argument("--pairs", type=int, default=6)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
 
     make_training(os.path.join(args.out, "rectified"), args.height,
                   args.width, args.scenes, args.pairs)

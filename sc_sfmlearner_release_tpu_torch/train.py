@@ -13,8 +13,7 @@ exact ``--resume``. ``--pretrained-disp/-pose`` also take the JAX trainer's
 trains on one CUDA card (``--device cuda``, the default; it raises without
 one) or on the CPU (``--device cpu``).
 
-Not here: ``--sampler`` and ``--spatial-shards`` (the TPU band sampler and
-its width-sharded mesh); argparse rejects them.
+Not here: ``--sampler`` (the TPU band sampler); argparse rejects it.
 
 ``--distributed`` trains data-parallel over the processes that torchrun
 starts, one card each (``torchrun --nproc_per_node=N -m
@@ -29,6 +28,20 @@ optimizer state; only process 0 writes the experiment directory (logs,
 TensorBoard, checkpoints, ``progress_log_*.csv``), and every process waits
 at the end of each epoch until its checkpoint is written. Without
 torchrun's environment ``--distributed`` exits with an error.
+
+``--spatial-shards S`` (with ``--distributed``) also shards the image width,
+as the JAX trainer's ``make_mesh_2d`` mesh does: the world splits into
+``world / S`` data groups of S adjacent ranks, each group loads its rows of
+every global batch at full width, each rank's step cuts its ``W / S``
+columns of them (after ``--device-augment``), and the networks, warps and
+losses exchange halos within the
+group (``parallel/spatial.py``). S must divide the world size, ``world / S``
+the global batch, and 32 * S the frames' width; anything else exits naming
+the rule (GSPMD would pad an uneven split; the port refuses it). So
+832x256 runs at S = 2 but not at S = 4 (832 / 32 = 26 columns at the
+deepest level). ``--fused-steps K > 1`` under ``--distributed`` needs NCCL,
+one card per rank: ranks that share a card run over gloo, whose
+collectives a CUDA graph cannot capture, and the CLI refuses it there.
 
 ``--fused-steps K`` runs K optimizer steps per dispatch
 (``make_train_step(fused_steps=K)``): on the card one CUDA-graph replay of
@@ -193,6 +206,11 @@ def build_parser() -> argparse.ArgumentParser:
                    "(RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT; one card "
                    "each, NCCL; gloo with --device cpu); each process feeds its "
                    "disjoint slice of every global batch (-b)")
+    p.add_argument("--spatial-shards", type=int, default=1,
+                   help="with --distributed: shard each image's width over this many "
+                   "adjacent processes (halo exchanges around every conv, pad, pool, "
+                   "SSIM and warp); it must divide the world size, world / S the "
+                   "global batch, and 32 * S the frames' width")
     p.add_argument("--full-state-freq", type=int, default=1,
                    help="write the full resume state every N epochs (model "
                    "weights are written every epoch regardless); the full "
@@ -344,32 +362,61 @@ def _write_rows(path: str, rows, mode: str = "a") -> None:
         csv.writer(f, delimiter="\t").writerows(rows)
 
 
+def _check_layout(args, device: torch.device, train_set) -> None:
+    """The rules of ``--spatial-shards`` and ``--fused-steps`` under
+    ``--distributed`` that need no process group; a SystemExit naming the
+    rule that a run breaks."""
+    shards = args.spatial_shards
+    if shards < 1:
+        raise SystemExit(f"--spatial-shards {shards}: must be at least 1")
+    if shards > 1 and not args.distributed:
+        raise SystemExit(f"--spatial-shards {shards} needs --distributed (torchrun's "
+                         "processes share each image's width)")
+    if (args.distributed and args.fused_steps > 1 and device.type == "cuda"
+            and distributed.backend_for(device) == "gloo"):
+        raise SystemExit(f"--fused-steps {args.fused_steps} under --distributed needs NCCL, "
+                         "one card per process: these processes share cards through gloo, "
+                         "whose collectives a CUDA graph cannot capture (use --fused-steps 1)")
+    if shards > 1 and len(train_set):
+        width = train_set.load(0, np.random.default_rng(0))["tgt"].shape[-2]
+        if width % (32 * shards):
+            raise SystemExit(f"--spatial-shards {shards}: the frames' width {width} is not a "
+                             f"multiple of 32 * {shards} = {32 * shards} (every shard of the "
+                             "deepest feature map needs whole columns)")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     device = cli_device(args.device)
+    datasets = _datasets(args)
+    _check_layout(args, device, datasets[0])
     if not args.distributed:
-        return _train(args, device)
+        return _train(args, device, datasets)
     try:
         # Before anything else touches the card: binds cuda:LOCAL_RANK.
-        device = distributed.init_distributed(device)
-    except RuntimeError as exc:
+        device = distributed.init_distributed(device, args.spatial_shards)
+    except (RuntimeError, ValueError) as exc:
         raise SystemExit(f"--distributed: {exc}") from exc
     try:
-        code = _train(args, device)
+        code = _train(args, device, datasets)
         distributed.barrier()
         return code
     finally:
         distributed.leave()
 
 
-def _train(args, device: torch.device) -> int:
+def _train(args, device: torch.device, datasets) -> int:
     proc_idx, proc_cnt = distributed.process_index(), distributed.process_count()
+    shards, groups = distributed.spatial_count(), distributed.data_count()
     if proc_cnt > 1:
-        print(f"=> process {proc_idx}/{proc_cnt} on {device}")
-    if args.batch_size % proc_cnt:
+        print(f"=> process {proc_idx}/{proc_cnt} on {device}"
+              + (f": data group {distributed.data_index()}/{groups}, column slice "
+                 f"{distributed.spatial_index()}/{shards}" if shards > 1 else ""))
+    if args.batch_size % groups:
         raise SystemExit(f"-b {args.batch_size} (the global batch) is not divisible by "
-                         f"{proc_cnt} processes")
+                         f"{groups} " + ("processes" if shards == 1 else
+                                         "data groups (world / --spatial-shards)"))
     is_main = proc_idx == 0  # only process 0 writes checkpoints and logs
     if args.debug_nans:
         enable_nan_debugging()
@@ -382,29 +429,33 @@ def _train(args, device: torch.device) -> int:
 
     tb_writer = None
     output_writers = []
-    if not args.no_tensorboard and is_main:
+    # Under width sharding every process infers the logged images' columns:
+    # the others hold None in place of process 0's writers.
+    if not args.no_tensorboard and (is_main or shards > 1):
         try:
             from tensorboardX import SummaryWriter
 
-            tb_writer = SummaryWriter(save_path)
+            if is_main:
+                tb_writer = SummaryWriter(save_path)
             if args.log_output:
                 output_writers = [SummaryWriter(os.path.join(save_path, "valid", str(i)))
-                                  for i in range(3)]
+                                  if is_main else None for i in range(3)]
         except ImportError:
             pass
 
     # ---- data ------------------------------------------------------------
-    train_set, val_set = _datasets(args)
+    train_set, val_set = datasets
     print(f"{len(train_set)} samples found in {len(train_set.scenes)} train scenes")
     print(f"{len(val_set)} samples found in {len(val_set.scenes)} valid scenes")
     pin = device.type == "cuda"
-    slices = {"process_index": proc_idx, "process_count": proc_cnt}
+    # The data group's rows at full width; the steps cut the columns.
+    rows = {"process_index": distributed.data_index(), "process_count": groups}
     train_loader = BatchLoader(train_set, args.batch_size, shuffle=True,
                                num_workers=args.workers, drop_last=True, seed=args.seed,
-                               pin_memory=pin, **slices)
+                               pin_memory=pin, **rows)
     val_loader = BatchLoader(val_set, args.batch_size, shuffle=False,
                              num_workers=args.workers, drop_last=False, seed=args.seed,
-                             pin_memory=pin, **slices)
+                             pin_memory=pin, **rows)
     epoch_size = args.epoch_size or len(train_loader)
     fused = max(args.fused_steps, 1)
     if fused > 1 and fused > epoch_size:
@@ -571,12 +622,17 @@ def _train(args, device: torch.device) -> int:
 
 def _log_val_images(writers, infer, img_batch, i, epoch):
     """TB depth/disparity images for the first len(writers) val batches
-    (reference behavior: train.py:328-337, 390-408)."""
+    (reference behavior: train.py:328-337, 390-408); under width sharding
+    every process infers (the disparity is gathered within its data group),
+    and process 0 writes (the others' writers are None)."""
     if i >= len(writers):
         return
-    disp = infer(img_batch)[0][0, ..., 0].float().cpu().numpy()
-    img = img_batch[0].float().cpu().numpy()
+    disp = infer(img_batch)[0]
     w = writers[i]
+    if w is None:
+        return
+    disp = disp[0, ..., 0].float().cpu().numpy()
+    img = img_batch[0].float().cpu().numpy()
     if epoch == 0:
         w.add_image("val Input", tensor2array(img), 0, dataformats="HWC")
     w.add_image("val Dispnet Output Normalized",

@@ -23,6 +23,14 @@ process's loss is its share of the global loss), the train step sums the
 gradients and the metrics over processes in one all-reduce after the
 backward, and the eval steps' padding mask follows the global row numbers.
 With ``fused_steps`` on the card the all-reduces are captured in the graph.
+Under width sharding (``--spatial-shards``, ``parallel/spatial.py``) every
+process of a data group takes the group's rows at full width, and each step
+cuts its frames to the process's column slice
+(``distributed.local_frames``, after the device augmentation): the
+networks, the warp and the losses exchange halos within the group, and the
+shares of the loss are column slices too, so the same sums give the global
+loss, gradients and metrics; no process holds the networks' activations at
+full width.
 
 Precision: ``"bf16"`` (the default, as the JAX trainer's ``--precision``)
 runs the convolutions under bf16 autocast; BatchNorm, the heads, geometry
@@ -237,7 +245,9 @@ def make_train_step(
 
     def update(snippet: Batch) -> Dict[str, torch.Tensor]:
         """One optimizer step on a snippet on the device (under a process
-        group, on this process's slice of the global batch)."""
+        group, on this process's rows of the global batch; under width
+        sharding cut here to its columns)."""
+        snippet = distributed.local_frames(snippet)
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = total_loss(disp_net, pose_net, snippet, cfg, precision=precision,
                                    train=True, remat=remat)
@@ -427,7 +437,7 @@ def make_eval_step(
     eval_cfg = dataclasses.replace(cfg, with_auto_mask=False, num_scales=1)
 
     def eval_step(batch) -> Dict[str, torch.Tensor]:
-        b = _snippet(batch, device)
+        b = distributed.local_frames(_snippet(batch, device))
         sample_mask = None
         if "n_valid" in batch:
             rows = distributed.global_rows(b["tgt"].shape[0], device)
@@ -444,17 +454,19 @@ def make_inference_fn(
 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """Single-image depth inference: ``infer(img [B, H, W, 3])`` returns
     (disp, depth), both ``[B, H, W, 1]`` at scale 0, with DispNet in eval
-    mode."""
+    mode. Under width sharding every process of the data group calls it on
+    the same images: DispNet runs on the process's columns, and the
+    disparity is gathered back to the whole width (validation only)."""
     device = resolve_device(device)
     _check_precision(precision)
     disable_tf32()
     disp_net.to(device)
 
     def infer(img) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = _to_device(img, device).float()
+        x = distributed.local_frames({"img": _to_device(img, device).float()})["img"]
         disp_net.eval()
         with torch.no_grad(), conv_autocast(device, precision):
-            disp = disp_net(x)[0]
+            disp = distributed.gather_width(disp_net(x)[0], 2)
         return disp, 1.0 / disp
 
     return infer
@@ -469,12 +481,16 @@ def make_eval_depth_step(
     metrics (:func:`~..ops.metrics.compute_depth_errors`). ``batch`` holds
     ``"img"`` ``[B, H, W, 3]``, ``"depth"`` ``[B, Hg, Wg]`` and optionally
     ``"n_valid"``: only the first ``n_valid`` images enter the means.
-    Returns ``eval_depth_step(batch) -> metrics`` (0-d tensors)."""
+    Under width sharding the batch holds the data group's rows at full
+    width, and the prediction comes back from :func:`make_inference_fn`
+    gathered to the whole width, because the per-image medians need whole
+    images. Returns
+    ``eval_depth_step(batch) -> metrics`` (0-d tensors)."""
     infer = make_inference_fn(disp_net, device, precision)
     device = resolve_device(device)
 
     def eval_depth_step(batch) -> Dict[str, torch.Tensor]:
-        _, depth = infer(batch["img"])
+        depth = infer(batch["img"])[1]
         gt = _to_device(batch["depth"], device).float()
         if gt.shape[1:] != depth.shape[1:3]:
             depth = resize_nearest(depth, gt.shape[1], gt.shape[2])

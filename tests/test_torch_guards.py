@@ -7,6 +7,7 @@ card."""
 import ast
 import importlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -51,9 +52,26 @@ def _imported_roots(path: Path):
 def test_port_and_chip_smoke_import_no_jax():
     files = sorted(PORT_DIR.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    assert PORT_DIR / "parallel" / "spatial.py" in files
     for f in files:
         bad = FORBIDDEN.intersection(_imported_roots(f))
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_port_scripts_name_no_jax():
+    """The port's shell flows run no JAX: no forbidden module is run or
+    imported, no JAX or Pallas variable is set, and no script file of the
+    repository (the JAX package's CLIs) is run."""
+    scripts = sorted((PORT_DIR / "scripts").glob("*.sh"))
+    assert len(scripts) == 12
+    for f in scripts:
+        text = f.read_text()
+        modules = re.findall(r"python3?\s+-m\s+([\w.]+)", text) + re.findall(
+            r"\bimport\s+([\w.]+)", text)
+        bad = FORBIDDEN.intersection(m.split(".")[0] for m in modules)
+        assert not bad, f"{f.relative_to(ROOT)} runs {sorted(bad)}"
+        assert not re.search(r"\b(JAX|PALLAS)_\w+", text), f.name
+        assert not re.search(r"\S+\.py\b", text), f.name
 
 
 def test_cpu_tensors_launch_no_kernel():

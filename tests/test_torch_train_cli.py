@@ -213,13 +213,47 @@ def test_with_pretrain_without_weights_is_an_error(tree, workdir, tmp_path, monk
         cli.main([tree, "--name", "noweights", "--epochs", "1"] + BASE)
 
 
-@pytest.mark.parametrize("flag", [["--sampler", "gather"], ["--spatial-shards", "2"],
-                                  ["--distributed", "--spatial-shards", "2"]])
+@pytest.mark.parametrize("flag", [["--sampler", "gather"]])
 def test_left_out_flags_are_rejected(tree, flag, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.build_parser().parse_args([tree, "--name", "x"] + flag)
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case", ["without_distributed", "not_dividing_the_world",
+                                  "width_not_a_multiple", "fused_over_shared_cards"])
+def test_spatial_shards_rules_exit_naming_the_rule(tree, workdir, case, monkeypatch):
+    """``--spatial-shards`` needs ``--distributed``; S must divide the
+    world size and 32 * S the frames' width (the tree's 96 columns: S = 2
+    needs a multiple of 64); ``--fused-steps > 1`` over ranks that share a
+    card (gloo, which a CUDA graph cannot capture) is refused."""
+    from sc_sfmlearner_release_tpu_torch.parallel import distributed
+
+    monkeypatch.chdir(workdir)
+    base = [tree, "--name", case, "--with-pretrain", "0", "--device", "cpu"]
+    for key, value in zip(distributed.TORCHRUN_ENV,
+                          ("0", "1", "0", "localhost", str(distributed.free_port()))):
+        monkeypatch.setenv(key, value)
+    if case == "without_distributed":
+        argv, match = base + ["--spatial-shards", "2"], "--spatial-shards 2 needs --distributed"
+    elif case == "not_dividing_the_world":
+        argv, match = base + ["--distributed", "--spatial-shards", "3"], \
+            "--spatial-shards 3 must divide the world size 1"
+    elif case == "width_not_a_multiple":
+        argv, match = base + ["--distributed", "--spatial-shards", "2"], \
+            "width 96 is not a multiple of 32 \\* 2 = 64"
+    else:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        argv = [tree, "--name", case, "--with-pretrain", "0", "--device", "cuda",
+                "--distributed", "--fused-steps", "2"]
+        match = "--fused-steps 2 under --distributed needs NCCL"
+    with pytest.raises(SystemExit, match=match):
+        cli.main(argv)
+    assert not distributed.is_distributed()
+    assert not os.path.exists(os.path.join(str(workdir), "checkpoints", case))
 
 
 def test_default_device_needs_a_card(tree, workdir, monkeypatch):

@@ -9,6 +9,10 @@ weights), runs every check's computation on this rank's slice and writes
 ``DIR/rank<r>.pt``. ``cli`` runs the train CLI with ``--distributed`` from
 its own directory ``DIR/rank<r>`` and writes the SHA-256 of every tensor of
 its networks, as they are in memory at the end, to ``DIR/nets<r>.json``.
+
+``spatial_checks`` and ``spatial_step`` are the width-sharded ranks of
+``tests/test_torch_spatial.py``, which starts them through
+``distributed.run_processes``.
 """
 
 import copy
@@ -235,3 +239,113 @@ def main() -> None:
 
 if __name__ == "__main__":
     main()
+
+
+# Width sharding (``--spatial-shards``): ranks started by
+# ``distributed.run_processes(..., spatial_shards=S)`` for
+# ``tests/test_torch_spatial.py``, each reading the test's ``inputs.pt``.
+
+def _columns(a, axis):
+    """This rank's column slice of ``a`` along ``axis``."""
+    index = [slice(None)] * a.ndim
+    index[axis] = distributed.local_columns(a.shape[axis])
+    return a[tuple(index)]
+
+
+def _spatial_ops(inputs) -> dict:
+    """The collectives and the halo-aware ops on this rank's columns, in
+    float64: outputs and input gradients for the test's cotangents."""
+    import torch.nn as nn
+
+    from sc_sfmlearner_release_tpu_torch.parallel import spatial
+
+    out = {}
+    for name, case in inputs["ops"].items():
+        x = _columns(case["x"], -1).clone().requires_grad_()
+        if name.startswith("conv"):
+            k, s, p = case["conv"]
+            conv = nn.Conv2d(x.shape[1], case["weight"].shape[0], k, s, p).double()
+            with torch.no_grad():
+                conv.weight.copy_(case["weight"])
+                conv.bias.copy_(case["bias"])
+            y = spatial.conv2d(x, conv)
+        elif name == "max_pool":
+            y = spatial.max_pool2d(x, nn.MaxPool2d(3, 2, 1))
+        elif name.startswith("reflect"):
+            y = spatial.reflect_pad1(x)
+        elif name == "halo":
+            y = distributed.halo(x, 3, 2)
+        elif name == "gather":
+            y = distributed.gather_width(x, -1)
+        else:  # spatial_sum
+            y = distributed.spatial_sum(x.sum(-1))
+        ct = case["cotangents"][distributed.spatial_index()]
+        (y * ct).sum().backward()
+        out[name] = {"y": y.detach(), "grad": x.grad}
+    return out
+
+
+def spatial_step(device, path: str) -> dict:
+    """The fp32 step with the device augmentation on this rank's data
+    group's rows, from seeded nets, and both networks' buffers after it."""
+    inputs = torch.load(path, weights_only=False)
+    batch = {k: torch.from_numpy(v[distributed.local_rows(v.shape[0])])
+             for k, v in inputs["aug_batch"].items()}
+    nets = seeded_nets(inputs["aug_seed"])
+    result = step_run(nets, batch, augment_fn=make_device_augment(AugmentConfig()),
+                      aug_seed=5)
+    result["buffers"] = {f"{i}.{k}": v.clone() for i, net in enumerate(nets)
+                         for k, v in net.named_buffers()}
+    return result
+
+
+def spatial_checks(device, path: str) -> dict:
+    """Every width-sharding check's result on this rank (2 ranks, S = 2)."""
+    inputs = torch.load(path, weights_only=False)
+    result = {"ops": _spatial_ops(inputs), "aug_step": spatial_step(device, path)}
+
+    # The step from the JAX-initialised nets on the whole batch: it cuts
+    # this rank's columns itself.
+    result["jax_step"] = step_run(nets_from(inputs["weights"]), inputs["jax_batch"])
+
+    # The loader (the data group's rows at full width), and this rank's
+    # columns of the augmented batch.
+    from sc_sfmlearner_release_tpu_torch.data.device_augment import step_generator
+
+    loader = BatchLoader(ImageSet(), 2, shuffle=True, num_workers=2,
+                         drop_last=False, seed=3, process_index=distributed.data_index(),
+                         process_count=distributed.data_count())
+    result["loader"] = list(loader)
+    aug = {k: torch.from_numpy(v) for k, v in inputs["aug_batch"].items()}
+    result["augmented"] = distributed.local_frames(
+        make_device_augment(AugmentConfig())(step_generator(5, 0), aug))
+
+    # The eval steps on a padded batch (n_valid counts the global batch).
+    disp, pose = nets_from(inputs["weights"])
+    ev = inputs["eval_batch"]
+    snippet = {"tgt": ev["tgt"], "refs": ev["refs"], "intrinsics": ev["intrinsics"],
+               "n_valid": inputs["n_valid"]}
+    result["eval"] = {k: float(v) for k, v in make_eval_step(
+        disp, pose, LossConfig(), device="cpu", precision="fp32")(snippet).items()}
+    result["eval_depth"] = {k: float(v) for k, v in make_eval_depth_step(
+        disp, device="cpu", precision="fp32")(
+        {"img": ev["tgt"], "depth": ev["depth"], "n_valid": inputs["n_valid"]}).items()}
+    return result
+
+
+class ImageSet:
+    """Frames, intrinsics and ground truth whose values tell their sample,
+    row and column apart."""
+
+    def __init__(self, n: int = 5, h: int = 4, w: int = 8):
+        self.n, self.h, self.w = n, h, w
+
+    def __len__(self) -> int:
+        return self.n
+
+    def load(self, i, rng):
+        frame = (np.arange(self.h * self.w * 3, dtype=np.float32).reshape(self.h, self.w, 3)
+                 + 1000 * i + rng.random((self.h, self.w, 3), np.float32))
+        return {"tgt": frame, "refs": np.stack([frame + 0.25, frame - 0.25]),
+                "intrinsics": np.eye(3, dtype=np.float32) * i,
+                "depth": frame[..., 0] * 2, "index": np.asarray(i, np.int64)}
