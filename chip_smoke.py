@@ -194,9 +194,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``predictions.npy`` finite with the frame count, ``eval_depth``'s
    printed metrics finite, the VO trajectory one pose per frame,
    ``eval_odom``'s errors finite; each step's wall time.
-16. Output: a ``{"kernels": [...]}`` line (``launches``: the JPEG-tree
-   CLI run's of phase 10, with every path's in ``launches_by_path``), the nvidia-smi line,
-   and last ``{"ok": true, "device": {...}}``.
+16. This slice's main path, the other published training configurations
+   (``[configs]``, after ``[scripts]``), each train CLI with the flags of
+   its script in ``sc_sfmlearner_release_tpu_torch/scripts/`` (read by
+   ``config_argv``: only TRAIN_SET, the ImageNet weights directory,
+   ``--epochs``, ``--epoch-size`` and ``--name`` overridden; seeded random
+   ``resnet50.pth``/``resnet18.pth`` for ``--with-pretrain 1``), every path
+   with the launch counts at 0 just before it. (1) The four kernels at
+   ``train_nyu.sh``'s B16 N1 256x320 shapes against their plain versions
+   (``nyu_kernels_phase``), their times and bounds. (2)
+   ``train_resnet50_depth_256.sh`` (DispNet-50, B4 N2 832x256, auto-mask):
+   the fp32 card step against the CPU at B2 N2 128x416 (``GRAD_RTOL_R50``);
+   the bf16 eager step (every kernel once, finite losses, host and device
+   ms, peak memory); the K = 16 graph with augmentation (device ms per
+   step, peak memory, launches, MFU from ``mfu_report.flop_model``); the
+   fp32 K = 3 graph against eager steps at ResNet-50; the CLI on a JPEG tree
+   at 832x256 with ``.npy`` ground truth, 2 epochs of 32 steps (two
+   ``--fused-steps 16`` dispatches each: the warm-up and the capture, then
+   two replays) and a ``--resume`` epoch of 16; then
+   ``test_disp --resnet-layers 50`` on ``[eval]``'s depth frames and
+   ``eval_depth`` (``test_kitti_depth.sh``). (3)
+   ``train_resnet50_pose_256.sh``: the CLI for 4 eager steps on an
+   odometry-layout tree, then ``test_pose``, ``test_vo`` and ``eval_odom``
+   on ``[eval]``'s sequence 09 from its PoseNet
+   (``test_kitti_pose.sh``, ``test_kitti_vo.sh``). (4) ``train_nyu.sh``
+   (DispNet-18, pair folders): the fp32 card step against the CPU at B2 N1
+   128x160 (``GRAD_RTOL_NYU``); the bf16 step at B16 N1 256x320 (device ms,
+   peak memory, MFU); the CLI on ``tools/make_smoke_nyu.py``'s tree at
+   256x320 (40 pairs a scene) for 2 epochs with ``--with-gt`` validation on
+   its 16-bit depth PNGs; ``test_nyu.sh``'s ``test_disp`` and ``eval_depth
+   --dataset nyu`` on its test split.
+17. Output: a ``{"kernels": [...]}`` line (``launches``: the
+   ``train_resnet50_depth_256.sh`` CLI run's of phase 16, with every
+   path's in ``launches_by_path``, and the kernels' numbers at NYU's shapes
+   under ``nyu_b16``), the nvidia-smi line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Without a card it exits non-zero and prints no result.
 """
@@ -219,6 +251,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -240,7 +273,7 @@ from sc_sfmlearner_release_tpu_torch.data import packed as packed_module
 from sc_sfmlearner_release_tpu_torch.data.image_io import FILTERS, read_png, write_png
 from sc_sfmlearner_release_tpu_torch.data.prepare.common import imresize
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
-from sc_sfmlearner_release_tpu_torch.models.resnet import BatchNorm2d
+from sc_sfmlearner_release_tpu_torch.models.resnet import BatchNorm2d, ResNet
 from sc_sfmlearner_release_tpu_torch.models.convert import (
     load_torch_state_dict, save_torch_checkpoint,
 )
@@ -255,8 +288,8 @@ from sc_sfmlearner_release_tpu_torch.ops.warp import (
 from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch, distributed
 from sc_sfmlearner_release_tpu_torch.inference import restore_disp_state
 from sc_sfmlearner_release_tpu_torch.tools import (
-    ablate_step, convert_checkpoint, make_smoke_kitti, mfu_report, overfit_check, profile_step,
-    synthetic_scene,
+    ablate_step, convert_checkpoint, make_smoke_kitti, make_smoke_nyu, mfu_report, overfit_check,
+    profile_step, synthetic_scene,
 )
 from sc_sfmlearner_release_tpu_torch.tools.profile_step import profile_phase, trace_summary
 from sc_sfmlearner_release_tpu_torch.training import (
@@ -367,6 +400,28 @@ def bound(n_bytes: float, n_flops: float):
     operations over the fp32 rate."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOPS
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def warp_fwd_bound(pixels: int):
+    """The warp forward's bound: read coords and the 4-channel source, write
+    4 channels, once each."""
+    return bound(pixels * (2 * 4 + 4 * 4 + 4 * 4), pixels * (30 + 4 * 7))
+
+
+def warp_bwd_bound(pixels: int):
+    """The warp backward's: read dout, coords and the source once; write
+    d(coords) and d(depth) once."""
+    return bound(pixels * (4 * 4 + 8 + 4 * 4 + 8 + 4), pixels * (30 + 4 * 8 + 20 + 4 * 2))
+
+
+def ssim_fwd_bound(n: int):
+    """SSIM forward over ``n`` values: read x and y, write the map."""
+    return bound(3 * n * 4, n * (9 * 8 + 20))
+
+
+def ssim_bwd_bound(n: int):
+    """SSIM backward (d/dy): read x, y and g, write d/dy."""
+    return bound(4 * n * 4, n * (9 * 8 + 60 + 3 * 18 + 6))
 
 
 def kitti_intrinsics(b: int) -> np.ndarray:
@@ -483,9 +538,7 @@ def warp_phase(inputs: dict) -> dict:
     library_ms = cuda_ms(lambda: F.grid_sample(src_nchw, coords, mode="bilinear",
                                                padding_mode="zeros", align_corners=False),
                          KERNEL_ITERS)
-    pixels = PAIRS * H * W
-    n_bytes = coords.numel() * 4 + src.numel() * 4 + pixels * 4 * 4
-    bound_ms, bound_by = bound(n_bytes, pixels * (30 + 4 * 7))
+    bound_ms, bound_by = warp_fwd_bound(PAIRS * H * W)
     log(f"  warp_sample [{PAIRS},{H},{W},4]: kernel {ms:.4f} ms (events), device "
         f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), plain "
         f"{plain_ms:.4f} ms, F.grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -555,10 +608,7 @@ def warp_bwd_phase(inputs: dict, rng: np.random.RandomState) -> dict:
                                    align_corners=False),
         (src.permute(0, 3, 1, 2).contiguous(), coords), dout.permute(0, 3, 1, 2))
     library_ms = cuda_ms(library, KERNEL_ITERS)
-    pixels = PAIRS * H * W
-    # Read dout, coords and the source once; write d(coords) and d(depth) once.
-    n_bytes = pixels * (4 * 4 + 8 + 4 * 4 + 8 + 4)
-    bound_ms, bound_by = bound(n_bytes, pixels * (30 + 4 * 8 + 20 + 4 * 2))
+    bound_ms, bound_by = warp_bwd_bound(PAIRS * H * W)
     log(f"  warp_sample_bwd [{PAIRS},{H},{W},4] -> d(coords), d(depth): kernel {ms:.4f} ms "
         f"(events), device {dev_ms:.4f} ms with its zero fill ({dev_by}, "
         f"{100 * bound_ms / dev_ms:.0f}% of bound), plain (autograd) {plain_ms:.4f} ms, "
@@ -663,8 +713,7 @@ def ssim_phase(rng: np.random.RandomState) -> dict:
     # the memory rate a kernel reaches here, not the same function.
     z = torch.empty_like(x)
     stream_ms, _ = device_ms(lambda: torch.add(x, y, out=z), "elementwise_kernel")
-    n = x.numel()
-    bound_ms, bound_by = bound(3 * n * 4, n * (9 * 8 + 20))
+    bound_ms, bound_by = ssim_fwd_bound(x.numel())
     log(f"  ssim_nchw [{PAIRS},3,{H},{W}]: kernel {ms:.4f} ms (events), device "
         f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); torch.add of x and y "
@@ -742,7 +791,7 @@ def ssim_bwd_phase(rng: np.random.RandomState) -> dict:
     z = torch.empty_like(x)
     stream_ms, _ = device_ms(lambda: torch.addcmul(x, y, g, out=z), "elementwise")
     n = x.numel()
-    bound_ms, bound_by = bound(4 * n * 4, n * (9 * 8 + 60 + 3 * 18 + 6))
+    bound_ms, bound_by = ssim_bwd_bound(n)
     dx_bound_ms, _ = bound(5 * n * 4, n * (9 * 8 + 70 + 4 * 18 + 12))
     log(f"  ssim_nchw_bwd [{PAIRS},3,{H},{W}] -> d/dy: kernel {ms:.4f} ms (events), device "
         f"{dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of bound), with d/dx "
@@ -781,8 +830,10 @@ def read_launches() -> dict:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def make_nets(seed: int):
-    return (DispNet(18, generator=torch.Generator().manual_seed(seed)),
+def make_nets(seed: int, layers: int = 18):
+    """DispNet of ``layers`` and PoseNet-18 (PoseNet is ResNet-18 in every
+    configuration) from seeded generators."""
+    return (DispNet(layers, generator=torch.Generator().manual_seed(seed)),
             PoseNet(18, generator=torch.Generator().manual_seed(seed + 1)))
 
 
@@ -877,23 +928,36 @@ def grads_by_name(*nets) -> dict:
             for name, p in net.named_parameters() if p.grad is not None}
 
 
-def check_step_against_cpu(seed: int, rng: np.random.RandomState, gate: bool = True) -> dict:
-    """The fp32 train step on the card (TF32 off) against the plain versions
-    on the CPU, at B2 N2 128x416 with full-width ResNet-18: losses, and each
-    parameter's gradient by relative L2. Returns the worst errors (and the
-    worst tensors' names under ``where_*``); with ``gate`` a crossing
-    raises."""
-    b, n, h, w = CHECK_SHAPE
-    k = kitti_intrinsics(b)
-    k[:, :2] *= np.array([[w / W], [h / H]], np.float32)
+def check_step_inputs(seed: int, rng: np.random.RandomState, layers: int = 18,
+                      shape=CHECK_SHAPE, intrinsics=None):
+    """``check_step_against_cpu``'s nets (heads spread) and numpy batch."""
+    b, n, h, w = shape
+    if intrinsics is None:
+        intrinsics = kitti_intrinsics(b)
+        intrinsics[:, :2] *= np.array([[w / W], [h / H]], np.float32)
     batch = {"tgt": rng.rand(b, h, w, 3).astype(np.float32),
-             "refs": rng.rand(b, n, h, w, 3).astype(np.float32), "intrinsics": k}
-    disp_net, pose_net = make_nets(seed)
-    spread_heads(disp_net, pose_net, seed)
+             "refs": rng.rand(b, n, h, w, 3).astype(np.float32), "intrinsics": intrinsics}
+    nets = make_nets(seed, layers)
+    spread_heads(*nets, seed)
+    return nets, batch
+
+
+def check_step_against_cpu(seed: int, rng: np.random.RandomState, gate: bool = True,
+                           layers: int = 18, shape=CHECK_SHAPE, intrinsics=None,
+                           cfg: LossConfig = LossConfig(), grad_rtol=GRAD_RTOL) -> dict:
+    """The fp32 train step on the card (TF32 off) against the plain versions
+    on the CPU, by default at B2 N2 128x416 (``shape``) with full-width
+    ResNet-18 (DispNet of ``layers``) and KITTI's camera scaled to it
+    (``intrinsics``, a ``[B, 3, 3]`` array, in its place): losses, and each
+    parameter's gradient by relative L2 against ``grad_rtol``. Returns the
+    worst errors (and the worst tensors' names under ``where_*``); with
+    ``gate`` a crossing raises."""
+    (disp_net, pose_net), batch = check_step_inputs(seed, rng, layers, shape, intrinsics)
     cpu_nets = (copy.deepcopy(disp_net), copy.deepcopy(pose_net))
-    card = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net),
+    card = make_train_step(disp_net, pose_net, make_optimizer(disp_net, pose_net), cfg,
                            device=DEVICE, precision="fp32")
-    cpu = make_train_step(*cpu_nets, make_optimizer(*cpu_nets), device="cpu", precision="fp32")
+    cpu = make_train_step(*cpu_nets, make_optimizer(*cpu_nets), cfg, device="cpu",
+                          precision="fp32")
     got = {k: v.item() for k, v in card(batch).items()}
     want = {k: v.item() for k, v in cpu(batch).items()}
     worst = {}
@@ -910,7 +974,7 @@ def check_step_against_cpu(seed: int, rng: np.random.RandomState, gate: bool = T
     rels = {}
     for name, ref in g_cpu.items():
         rels[name] = ((g_card[name] - ref).norm() / ref.norm().clamp_min(1e-30)).item()
-    for part, tol in GRAD_RTOL.items():
+    for part, tol in grad_rtol.items():
         mine = {k: v for k, v in rels.items() if (".encoder." in k) == (part == "encoders")}
         top = max(mine, key=mine.get)
         log(f"  fp32 train gradients, {part}: {len(mine)} tensors, median rel L2 "
@@ -947,48 +1011,58 @@ def cpu_check_seeds(seed: int, n: int) -> list:
     return crossings
 
 
-def train_phase(seed: int, rng: np.random.RandomState, profile: bool):
-    """Slice 3's path: the bf16 train step at full width. Returns its
-    launches and its device time per step."""
-    disp_net, pose_net = make_nets(seed)
-    batch = make_batch(rng)
+def bf16_step(tag: str, nets, batch: dict, cfg: LossConfig, profile: bool = False):
+    """The bf16 train step of ``nets`` (DispNet, PoseNet) on the numpy
+    ``batch``: one step with the launch counts at 0, in which every kernel
+    must launch; TRAIN_STEPS more with finite losses; the median host time
+    fed the numpy batch and with the batch on the card; peak memory; the
+    device time of a CUDA-graph replay of the step on a copy of the nets.
+    Returns (launches, times)."""
+    disp_net, pose_net = nets
     state = create_train_state(disp_net, pose_net, make_optimizer(disp_net, pose_net))
-    step = make_train_step(disp_net, pose_net, state.optimizer, LossConfig(), device=DEVICE)
+    step = make_train_step(disp_net, pose_net, state.optimizer, cfg, device=DEVICE)
     torch.cuda.reset_peak_memory_stats()
 
     zero_launches()
     first = step(batch)
     launches = read_launches()
-    log(f"[train] launches in one bf16 train step: {launches}")
+    log(f"[{tag}] launches in one bf16 train step: {launches}")
     for name, count in launches.items():
         if count < 1:
             raise AssertionError(f"{name} was not launched by the train step")
     losses = [first["loss"].item()] + [step(batch)["loss"].item() for _ in range(TRAIN_STEPS)]
-    log(f"[train] bf16 losses over {len(losses)} steps: {[round(x, 6) for x in losses]}")
+    log(f"[{tag}] bf16 losses over {len(losses)} steps: {[round(x, 6) for x in losses]}")
     if not all(np.isfinite(losses)) or state.step != TRAIN_STEPS + 1:
         raise AssertionError(f"train step: losses {losses}, {state.step} optimizer steps")
 
     on_card = {k: torch.from_numpy(v).to(DEVICE) for k, v in batch.items()}
     times = {"train_step_bf16_ms": host_ms(lambda: step(batch)),
              "train_step_bf16_batch_on_card_ms": host_ms(lambda: step(on_card))}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    times["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
     # The device's own time per step, from a CUDA-graph replay of the same
     # step on a copy of the nets; capture needs Adam's capturable form,
     # which keeps its step count on the card.
-    nets = (copy.deepcopy(disp_net), copy.deepcopy(pose_net))
-    adam = torch.optim.Adam([q for net in nets for q in net.parameters()], lr=1e-4,
+    copies = (copy.deepcopy(disp_net), copy.deepcopy(pose_net))
+    adam = torch.optim.Adam([q for net in copies for q in net.parameters()], lr=1e-4,
                             eps=1e-8, capturable=True)
-    graph_step = make_train_step(*nets, adam, LossConfig(), device=DEVICE)
+    graph_step = make_train_step(*copies, adam, cfg, device=DEVICE)
     times["train_step_bf16_device_ms"] = graph_ms(lambda: graph_step(on_card), 3)
     times["device_busy_share"] = (times["train_step_bf16_device_ms"]
                                   / times["train_step_bf16_batch_on_card_ms"])
-    del graph_step, adam, nets
-    log(f"[train] times (host clock, median of {STEP_ITERS}, each step ends in synchronize; "
+    del graph_step, adam, copies
+    log(f"[{tag}] times (host clock, median of {STEP_ITERS}, each step ends in synchronize; "
         f"device_ms from a CUDA-graph replay): {times}")
-    log(f"[train] peak device memory {peak_gib:.2f} GiB")
+    log(f"[{tag}] peak device memory {times['peak_memory_gib']:.2f} GiB")
     if profile:
         profile_phase(step, on_card, "bf16 train step")
-    del step, state, disp_net, pose_net
+    return launches, times
+
+
+def train_phase(seed: int, rng: np.random.RandomState, profile: bool):
+    """Slice 3's path: the bf16 train step at full width. Returns its
+    launches and its device time per step."""
+    launches, times = bf16_step("train", make_nets(seed), make_batch(rng), LossConfig(),
+                                profile)
     log("[train] fp32 step on the card against the CPU's plain step")
     check_step_against_cpu(seed + 2, rng)
     return launches, times["train_step_bf16_device_ms"]
@@ -1077,6 +1151,13 @@ def run_cli(root: str, name: str, seed: int, *extra: str,
             "--with-auto-mask", "1", "--epochs", str(CLI_EPOCHS), "--epoch-size",
             str(CLI_EPOCH_SIZE), "--val-batches", str(CLI_VAL_BATCHES), "--no-tensorboard",
             "--log-style", "line", "--seed", str(seed), *extra]
+    return run_train(root, argv)
+
+
+def run_train(root: str, argv: list, tag: str = "cli") -> str:
+    """``train.main(argv)`` from ``root`` (where ``checkpoints/`` lands);
+    returns the experiment directory of ``argv``'s ``--name``. The CLI's
+    progress lines are printed after it ends."""
     out = io.StringIO()
     cwd = os.getcwd()
     os.chdir(root)
@@ -1087,10 +1168,10 @@ def run_cli(root: str, name: str, seed: int, *extra: str,
         os.chdir(cwd)
         for line in out.getvalue().replace("\r", "\n").splitlines():
             if line.strip():
-                log(f"  [cli] {line.strip()}")
+                log(f"  [{tag}] {line.strip()}")
     if code != 0:
         raise AssertionError(f"train CLI exited {code}")
-    (path,) = glob.glob(os.path.join(root, "checkpoints", name, "*"))
+    (path,) = glob.glob(os.path.join(root, "checkpoints", argv[argv.index("--name") + 1], "*"))
     return path
 
 
@@ -1099,15 +1180,15 @@ def read_rows(path: str):
         return list(csv.reader(f, delimiter="\t"))[1:]
 
 
-def check_cli_outputs(save: str, label: str) -> list:
-    """CLI_STEPS finite loss rows, and the reference-layout weight files
-    load into fresh networks; returns the rows."""
+def check_cli_outputs(save: str, label: str, steps: int = CLI_STEPS, layers: int = 18) -> list:
+    """``steps`` finite loss rows, and the reference-layout weight files load
+    into fresh networks (DispNet of ``layers``); returns the rows."""
     rows = read_rows(os.path.join(save, "progress_log_full.csv"))
     losses = [float(r[0]) for r in rows]
-    if len(rows) != CLI_STEPS or not all(np.isfinite(float(v)) for r in rows for v in r):
+    if len(rows) != steps or not all(np.isfinite(float(v)) for r in rows for v in r):
         raise AssertionError(f"{label} progress_log_full.csv: {len(rows)} rows {rows}")
     log(f"[{label}] {len(rows)} finite loss rows, first {losses[0]:.5f} last {losses[-1]:.5f}")
-    for prefix, net in (("dispnet", DispNet(18)), ("exp_pose", PoseNet(18))):
+    for prefix, net in (("dispnet", DispNet(layers)), ("exp_pose", PoseNet(18))):
         for kind in ("checkpoint", "model_best"):
             net.load_state_dict(load_torch_state_dict(
                 os.path.join(save, f"{prefix}_{kind}.pth.tar")))
@@ -1124,7 +1205,7 @@ def check_resume(root: str, save: str, name: str, seed: int, label: str) -> None
     log(f"[{label}] --resume without --fused-steps: steps {steps[0]}..{steps[-1]}")
 
 
-def cli_times(save: str, prefix: str, skip: int) -> dict:
+def cli_times(save: str, prefix: str, skip: int, epoch_size: int = CLI_EPOCH_SIZE) -> dict:
     """Step and data wait per optimizer step from the time log, after the
     first ``skip`` rows: the median, and the mean over the second epoch,
     whose rows add up to its wall time from its first batch to its
@@ -1132,12 +1213,14 @@ def cli_times(save: str, prefix: str, skip: int) -> dict:
     timing = read_rows(os.path.join(save, train_cli.TIME_LOG))
     step_ms = [1e3 * float(r[2]) for r in timing]
     wait_ms = [1e3 * float(r[1]) for r in timing]
-    return {f"{prefix}_first_step_ms": step_ms[0],
-            f"{prefix}_step_ms_median_after_{skip}": float(np.median(step_ms[skip:])),
-            f"{prefix}_step_ms_range_after_{skip}": [min(step_ms[skip:]), max(step_ms[skip:])],
-            f"{prefix}_step_ms_mean_epoch_2": float(np.mean(step_ms[CLI_EPOCH_SIZE:])),
-            f"{prefix}_data_wait_ms_median_after_{skip}": float(np.median(wait_ms[skip:])),
-            f"{prefix}_data_wait_ms_mean_after_{skip}": float(np.mean(wait_ms[skip:]))}
+    times = {f"{prefix}_first_step_ms": step_ms[0],
+             f"{prefix}_step_ms_median_after_{skip}": float(np.median(step_ms[skip:])),
+             f"{prefix}_step_ms_range_after_{skip}": [min(step_ms[skip:]), max(step_ms[skip:])],
+             f"{prefix}_data_wait_ms_median_after_{skip}": float(np.median(wait_ms[skip:])),
+             f"{prefix}_data_wait_ms_mean_after_{skip}": float(np.mean(wait_ms[skip:]))}
+    if len(step_ms) > epoch_size:
+        times[f"{prefix}_step_ms_mean_epoch_2"] = float(np.mean(step_ms[epoch_size:]))
+    return times
 
 
 def cli_phase(seed: int, per_step: dict, per_validation: dict) -> dict:
@@ -2331,15 +2414,15 @@ def copy_train_state(src, dst) -> None:
                     dst_opt.state[q][name].copy_(v)
 
 
-def graph_check(seed: int, rng: np.random.RandomState, remat: bool):
+def graph_check(seed: int, rng: np.random.RandomState, remat: bool, layers: int = 18):
     """fp32 K = GRAPH_K graphed steps through GRAPH_CALLS calls (warm-up,
     capture and replay, replay), each call against K eager steps on a deep
     copy of the same nets and optimizer put in the graph's state before the
     call, with the same uint8 batches and augmentation draws, beside
     NOISE_COPIES more eager copies that measure the eager step's own
-    run-to-run noise. Returns the graphed step, a batch for it, and the
-    failures."""
-    nets = make_nets(seed)
+    run-to-run noise; DispNet of ``layers``. Returns the graphed step, a
+    batch for it, and the failures."""
+    nets = make_nets(seed, layers)
     for net in nets:
         net.to(DEVICE)
     optimizer = make_optimizer(*nets, lr=LR, capturable=True)
@@ -2392,6 +2475,44 @@ def graph_check(seed: int, rng: np.random.RandomState, remat: bool):
     return graphed, group, failures
 
 
+def graphed_bf16(tag: str, nets, k: int, seed: int, rng: np.random.RandomState,
+                 cfg: LossConfig = LossConfig()):
+    """bf16 ``make_train_step(fused_steps=k)`` of ``nets`` with the device
+    augmentation on uint8 frames: the warm-up and the capture calls' host
+    times, the device time per optimizer step of the replays, the host time
+    of a call that waits for its result, and peak memory. Returns them and
+    the launches of all its calls, with their number of optimizer steps."""
+    for net in nets:
+        net.to(DEVICE)
+    step = make_train_step(*nets, make_optimizer(*nets, lr=LR, capturable=True), cfg,
+                           device=DEVICE, augment_fn=device_augment.make_device_augment(
+                               device_augment.AugmentConfig()),
+                           aug_seed=seed, fused_steps=k)
+    group = stacked_uint8(rng, k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    calls = []
+    for _ in range(2):  # the warm-up, then the capture and its first replay
+        t = time.perf_counter()
+        losses = step(group)["loss"].tolist()
+        calls.append((time.perf_counter() - t) * 1e3)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"bf16 graphed losses {losses}")
+    times = {"warmup_call_ms": calls[0], "capture_call_ms": calls[1],
+             "graph_device_ms_per_step": cuda_ms(lambda: step(group), 4, warmup=1) / k,
+             "graph_call_host_ms_per_step": host_ms(lambda: step(group), 5) / k,
+             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
+    launches = read_launches()
+    n_steps = (2 + (1 + 4) + (1 + 5)) * k
+    log(f"[{tag}] bf16 K={k} (device augmentation on uint8): {times} (device ms: CUDA events "
+        "around back-to-back calls, each a replay and its input copies; host ms: host clock "
+        "around a call that ends in synchronize)")
+    del step, group
+    torch.cuda.empty_cache()
+    return times, launches, n_steps
+
+
 def graph_phase(seed: int, rng: np.random.RandomState, per_step: dict,
                 eager_device_ms: float) -> dict:
     """The train step as CUDA-graph replays of K steps: fp32 against eager
@@ -2411,35 +2532,9 @@ def graph_phase(seed: int, rng: np.random.RandomState, per_step: dict,
     failures += graph_check(seed + 12, rng, remat=True)[2]
     torch.cuda.empty_cache()
 
-    nets = make_nets(seed + 13)
-    for net in nets:
-        net.to(DEVICE)
-    step = make_train_step(*nets, make_optimizer(*nets, lr=LR, capturable=True), device=DEVICE,
-                           augment_fn=device_augment.make_device_augment(
-                               device_augment.AugmentConfig()),
-                           aug_seed=seed, fused_steps=CLI_FUSED_K)
-    group = stacked_uint8(rng, CLI_FUSED_K)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    calls = []
-    for _ in range(2):  # the warm-up, then the capture and its first replay
-        t = time.perf_counter()
-        losses = step(group)["loss"].tolist()
-        calls.append((time.perf_counter() - t) * 1e3)
-        if not all(np.isfinite(losses)):
-            raise AssertionError(f"bf16 graphed losses {losses}")
-    times = {"warmup_call_ms": calls[0], "capture_call_ms": calls[1],
-             "graph_device_ms_per_step": cuda_ms(lambda: step(group), 4, warmup=1)
-             / CLI_FUSED_K,
-             "graph_call_host_ms_per_step": host_ms(lambda: step(group), 5) / CLI_FUSED_K,
-             "eager_step_device_ms": eager_device_ms,
-             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30}
-    log(f"[graph] bf16 K={CLI_FUSED_K} (device augmentation on uint8): {times} "
-        "(device ms: CUDA events around back-to-back calls, each a replay and its input "
-        "copies; host ms: host clock around a call that ends in synchronize; the eager "
-        "step's device time is the train phase's graph of one step, without augmentation)")
-    del step, nets
-    torch.cuda.empty_cache()
+    times = graphed_bf16("graph", make_nets(seed + 13), CLI_FUSED_K, seed, rng)[0]
+    log(f"[graph] the eager step's device time (the train phase's graph of one step, without "
+        f"augmentation): {eager_device_ms:.4f} ms")
     return launches, failures, times["graph_device_ms_per_step"]
 
 
@@ -3027,6 +3122,451 @@ def tools_phase(seed: int, smi: str, per_step: dict, graph_device_ms: float) -> 
     return by_path
 
 
+# The configs phase: the repository's other published training
+# configurations at their full published size. Each train CLI runs with the
+# flags its script in sc_sfmlearner_release_tpu_torch/scripts/ passes,
+# read by running the script with a recording ``python`` first on PATH;
+# only TRAIN_SET, the ImageNet weights directory (seeded random files in
+# torchvision's layout), --epochs, --epoch-size and --name are overridden.
+CONFIGS_DIR = os.path.join("build", "chip_smoke_configs")
+PORT_SCRIPTS = os.path.join(os.path.dirname(os.path.abspath(train_cli.__file__)), "scripts")
+TRAIN_MODULE = "sc_sfmlearner_release_tpu_torch.train"
+CONFIG_FLAG_OVERRIDES = ("--epochs", "--epoch-size", "--name")
+# Variables the scripts read that are unset for them, so that each
+# script's own defaults hold (they set TRAIN_SET and IMAGENET_WEIGHTS_DIR).
+SCRIPT_DEFAULTS_ENV = ("DEVICE", "FUSED_STEPS")
+R50 = 50
+R50_K = 16                  # train_resnet50_depth_256.sh's --fused-steps
+# Its CLI's epochs: 2 dispatches of R50_K steps each, so the second epoch
+# holds only replays (the first: the eager warm-up, then the capture).
+R50_EPOCH_SIZE = 2 * R50_K
+# Gradients of the fp32 ResNet-50 card step against the CPU's at CHECK_SHAPE
+# (DispNet-50 and PoseNet-18, the scripts' auto-mask on), relative L2 per
+# tensor, by GRAD_RTOL's recipe: on the CPU alone, perturbing the frames by
+# 1e-6 moves them at this shape by up to 5.3e-2 (encoders) and 4.4e-3
+# (decoders and heads), two trials (``JAX_PLATFORMS=cpu PYTHONPATH=. python
+# tests/test_torch_configs.py card-gates``); the tolerances are about twice
+# that.
+GRAD_RTOL_R50 = {"encoders": 1e-1, "decoders": 1e-2}
+# The same for the NYU pair step at NYU_CHECK_SHAPE (DispNet-18): 2.2e-2 and
+# 3.7e-5, two trials; GRAD_RTOL's encoder gate (3e-2) is under twice that,
+# its decoder gate stays.
+GRAD_RTOL_NYU = {"encoders": 5e-2, "decoders": GRAD_RTOL["decoders"]}
+# train_resnet50_depth_256.sh on a JPEG tree at 832x256 with .npy ground
+# truth (--with-gt): 132 snippets, 33 batches of 4 for epochs of
+# R50_EPOCH_SIZE steps.
+R50_SCENES = (("2011_09_26_drive_0001_sync_02", 68, "train"),
+              ("2011_09_26_drive_0009_sync_02", 68, "train"),
+              ("2011_09_26_drive_0002_sync_02", 8, "val"))
+# train_resnet50_pose_256.sh on an odometry dump's layout: sequences as
+# scenes; one epoch of 4 steps, photometric validation (no --with-gt).
+POSE_SCENES = (("00_02", 12, "train"), ("08_02", 12, "train"), ("09_02", 8, "val"))
+POSE_STEPS = 4
+NYU_B, NYU_N, NYU_H, NYU_W = 16, 1, 256, 320   # train_nyu.sh: -b16, pair folders, 320x256
+NYU_WARPS = 2 * NYU_N * NYU_B
+NYU_CHECK_SHAPE = (2, 1, 128, 160)  # the fp32 card-vs-CPU step at NYU's aspect
+NYU_CLI_PAIRS = 40          # make_smoke_nyu --pairs: 2 scenes, 5 batches of 16 an epoch
+CONFIG_EPOCHS = 2
+
+
+def nyu_intrinsics(b: int, h: int, w: int) -> np.ndarray:
+    """NYUv2's Kinect camera (fx 518.86, fy 519.47, cx 325.58, cy 253.74 at
+    640x480) scaled to ``w`` x ``h``."""
+    k = np.array([[518.86 * w / 640, 0.0, 325.58 * w / 640],
+                  [0.0, 519.47 * h / 480, 253.74 * h / 480],
+                  [0.0, 0.0, 1.0]], np.float32)
+    return np.broadcast_to(k, (b, 3, 3)).copy()
+
+
+def script_train_argv(script: str, train_set: str, weights_dir: str) -> list:
+    """The arguments that ``sc_sfmlearner_release_tpu_torch/scripts/<script>``
+    gives ``python -m sc_sfmlearner_release_tpu_torch.train``, as bash
+    expands them with TRAIN_SET and IMAGENET_WEIGHTS_DIR set and DEVICE and
+    FUSED_STEPS unset: the script runs once with a ``python`` first on PATH
+    that writes its arguments instead of running them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        record = os.path.join(tmp, "argv")
+        shim = os.path.join(tmp, "python")
+        with open(shim, "w") as f:
+            f.write('#!/bin/sh\nprintf \'%s\\0\' "$@" >> "$SCRIPT_ARGV"\n')
+        os.chmod(shim, 0o755)
+        env = {k: v for k, v in os.environ.items() if k not in SCRIPT_DEFAULTS_ENV}
+        env.update(PATH=f"{tmp}:{os.environ['PATH']}", SCRIPT_ARGV=record,
+                   TRAIN_SET=train_set, IMAGENET_WEIGHTS_DIR=weights_dir)
+        subprocess.run(["bash", os.path.join(PORT_SCRIPTS, script)], env=env, check=True,
+                       capture_output=True, timeout=60)
+        with open(record) as f:
+            argv = f.read().split("\0")[:-1]
+    if argv[:2] != ["-m", TRAIN_MODULE] or argv.count("-m") != 1:
+        raise AssertionError(f"{script}: expected one python -m {TRAIN_MODULE} line, got {argv}")
+    return argv[2:]
+
+
+def config_argv(script: str, train_set: str, weights_dir: str, overrides: dict) -> list:
+    """``script_train_argv`` with each flag of ``overrides`` (only
+    CONFIG_FLAG_OVERRIDES) set to its value: in place where the script
+    passes it, else appended."""
+    if set(overrides) - set(CONFIG_FLAG_OVERRIDES):
+        raise ValueError(f"only {CONFIG_FLAG_OVERRIDES} may be overridden, not {overrides}")
+    argv = script_train_argv(script, train_set, weights_dir)
+    for flag, value in overrides.items():
+        if flag in argv:
+            argv[argv.index(flag) + 1] = value
+        else:
+            argv += [flag, value]
+    return argv
+
+
+def write_imagenet_files(root: str, seed: int) -> str:
+    """``resnet50.pth`` and ``resnet18.pth`` of seeded random weights in
+    torchvision's layout (the fc layer included) under ``root``: what
+    ``--with-pretrain 1`` grafts. Returns ``root``."""
+    os.makedirs(root)
+    for layers, features in ((R50, 2048), (18, 512)):
+        g = torch.Generator().manual_seed(seed + layers)
+        sd = {k: (torch.randn(v.shape, generator=g) * 0.05 if v.is_floating_point() else v)
+              for k, v in ResNet(layers, 1).state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+        for k in sd:
+            if "running_var" in k:
+                sd[k] = sd[k].abs() + 1.0
+        sd["fc.weight"], sd["fc.bias"] = torch.zeros(1000, features), torch.zeros(1000)
+        torch.save(sd, os.path.join(root, f"resnet{layers}.pth"))
+    return root
+
+
+def write_jpeg_tree(root: str, seed: int, scenes) -> str:
+    """A KITTI-format tree at 832x256: per scene ``(name, frames, split)`` a
+    camera panning over a texture, 2 pixels a frame, as JPEGs (the port's
+    codec) with KITTI's ``cam.txt``; validation scenes also hold ``.npy``
+    depth (far at the top, near at the bottom) for ``--with-gt``. Returns
+    ``root``."""
+    rng = np.random.RandomState(seed)
+    lists = {"train": [], "val": []}
+    for name, count, split in scenes:
+        scene = os.path.join(root, name)
+        os.makedirs(scene)
+        texture = noise_texture(rng, H, W + 2 * count)
+        for i in range(count):
+            jpeg_io.encode(os.path.join(scene, f"{i:07d}.jpg"), texture[:, 2 * i:2 * i + W])
+            if split == "val":
+                depth = (80 - 75 * np.linspace(0, 1, H)[:, None]) * (1 + 0.1 * rng.rand(H, W))
+                np.save(os.path.join(scene, f"{i:07d}.npy"), depth.astype(np.float32))
+        np.savetxt(os.path.join(scene, "cam.txt"), kitti_intrinsics(1)[0])
+        lists[split].append(name)
+    for split, names in lists.items():
+        with open(os.path.join(root, f"{split}.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root
+
+
+def nyu_kernels_phase(rng: np.random.RandomState, smi: str) -> dict:
+    """The four kernels at train_nyu.sh's shapes (B16 N1 256x320: 32 warps
+    of [256, 320], SSIM on [32, 3, 256, 320]) against their plain versions:
+    the warp forward and backward on coordinates projected from an indoor
+    pair (NYU's camera, a hand-held motion) and on random ones, both padding
+    modes; SSIM forward and backward on an independent and a correlated
+    ``y``, the backward against its plain version (and against autograd
+    through the plain forward on the independent ``y``; on the correlated
+    one that is reported beside a float64 autograd, as at
+    ``SSIM_SHARD_SHAPE``). Each kernel's times and bound at these shapes."""
+    dev = torch.device(DEVICE)
+    pairs, h, w = NYU_WARPS, NYU_H, NYU_W
+    depth = torch.from_numpy(rng.uniform(0.5, 10.0, (pairs, h, w, 1)).astype(np.float32)).to(dev)
+    rgb = torch.from_numpy(rng.rand(pairs, h, w, 3).astype(np.float32)).to(dev)
+    src = torch.cat([depth, rgb], -1).contiguous()
+    # A wall from 1.5 m on the left to 6 m on the right.
+    wall = np.linspace(1.5, 6.0, w, dtype=np.float32)[None, None, :, None]
+    tgt_depth = torch.from_numpy(np.ascontiguousarray(
+        np.broadcast_to(wall, (pairs, h, w, 1)))).to(dev)
+    pose = torch.from_numpy(
+        (rng.randn(pairs, 6) * [0.05, 0.02, 0.05, 0.01, 0.02, 0.01]).astype(np.float32)).to(dev)
+    intr = torch.from_numpy(nyu_intrinsics(pairs, h, w)).to(dev)
+    rand = torch.from_numpy(rng.uniform(-1.3, 1.3, (pairs, h, w, 2)).astype(np.float32)).to(dev)
+    cases = []
+    for mode in ("zeros", "border"):
+        proj, _ = project_pixel_coords(tgt_depth, pose, intr, mode)
+        cases += [(mode, "projected", proj.contiguous()), (mode, "random", rand)]
+    dout = torch.from_numpy(rng.randn(pairs, h, w, 4).astype(np.float32)).to(dev)
+    tag = f"[{pairs},{h},{w}]"
+    errs = {"warp_sample": 0.0, "warp_sample_bwd": 0.0, "ssim_nchw": 0.0, "ssim_nchw_bwd": 0.0}
+    for mode, label, coords in cases:
+        got = warp_sample(src, coords, mode)
+        errs["warp_sample"] = max(errs["warp_sample"], check_close(
+            f"warp_sample {tag} {mode}/{label}", got, warp_sample_plain(src, coords, mode),
+            KERNEL_TOL))
+        dsrc, dcoords = warp_sample_bwd(src, coords, dout, mode, 1, True)
+        (want_d, want_c), _ = plain_grads(
+            lambda d, c: warp_sample_plain(d, c, mode, frozen=rgb), (depth, coords), dout)
+        errs["warp_sample_bwd"] = max(
+            errs["warp_sample_bwd"],
+            check_rel(f"warp_sample_bwd {tag} {mode}/{label} d(coords)", dcoords, want_c,
+                      GRAD_TOL),
+            check_rel(f"warp_sample_bwd {tag} {mode}/{label} d(depth)", dsrc, want_d, GRAD_TOL))
+    coords = cases[0][2]
+    calls = {"warp_sample": (lambda: warp_sample(src, coords, "zeros"), "warp_sample",
+                             warp_fwd_bound(pairs * h * w)),
+             "warp_sample_bwd": (lambda: warp_sample_bwd(src, coords, dout, "zeros", 1, True),
+                                 ("warp_sample_bwd", "Memset"), warp_bwd_bound(pairs * h * w))}
+
+    shape = (pairs, 3, h, w)
+    x = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)
+    noise = torch.from_numpy((rng.randn(*shape) * 0.05).astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    ys = (("independent", torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(dev)),
+          ("correlated", (x + noise).clamp(0.0, 1.0)))
+    tag = f"[{','.join(map(str, shape))}]"
+    log(f"  ssim_nchw {tag}: {ssim_plan(x, ys[0][1])}; backward: "
+        f"{ssim_bwd_plan(x, ys[0][1], g)}")
+    for label, y in ys:
+        errs["ssim_nchw"] = max(errs["ssim_nchw"], check_close(
+            f"ssim_nchw {tag} {label}", ssim_nchw(x, y), ssim_nchw_plain(x, y), KERNEL_TOL))
+        (want_x, want_y), _ = plain_grads(ssim_nchw_plain, (x, y), g)
+        plain_x, plain_y = ssim_nchw_bwd_plain(x, y, g, need_x=True)
+        _, dy_only = ssim_nchw_bwd(x, y, g)
+        dx, dy = ssim_nchw_bwd(x, y, g, need_x=True)
+        refs = [("plain", (plain_x, plain_y))]
+        if label == "independent":
+            refs.append(("autograd", (want_x, want_y)))
+        else:
+            report_against_float64(f"ssim_nchw_bwd {tag} {label}", x, y, g, (dx, dy),
+                                   (want_x, want_y))
+        for ref, (rx, ry) in refs:
+            name = f"ssim_nchw_bwd {tag} {label}"
+            errs["ssim_nchw_bwd"] = max(
+                errs["ssim_nchw_bwd"],
+                check_rel(f"{name} d/dy alone vs {ref}", dy_only, ry, GRAD_TOL),
+                check_rel(f"{name} d/dy vs {ref}", dy, ry, GRAD_TOL),
+                check_rel(f"{name} d/dx vs {ref}", dx, rx, GRAD_TOL))
+    y = ys[1][1]
+    calls["ssim_nchw"] = (lambda: ssim_nchw(x, y), "ssim_kernel", ssim_fwd_bound(x.numel()))
+    calls["ssim_nchw_bwd"] = (lambda: ssim_nchw_bwd(x, y, g), "ssim_bwd_kernel",
+                              ssim_bwd_bound(x.numel()))
+    out = {}
+    for name, (call, kernel, (bound_ms, bound_by)) in calls.items():
+        ms = cuda_ms(call, KERNEL_ITERS)
+        dev_ms, dev_by = device_ms(call, kernel)
+        out[name] = {"max_abs_err": errs[name], "ms": ms, "device_ms": dev_ms,
+                     "device_ms_by": dev_by, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bound_share": bound_ms / dev_ms}
+        log(f"[configs] {name} at NYU's B16 shapes | {smi}: kernel {ms:.4f} ms (events), "
+            f"device {dev_ms:.4f} ms ({dev_by}, {100 * bound_ms / dev_ms:.0f}% of its bound "
+            f"{bound_ms:.4f} ms, {bound_by}); max err {errs[name]:.3e}")
+    return out
+
+
+def mfu(flops: float, ms: float) -> float:
+    """``flops`` per step at ``ms`` per step over the card's bf16 dense peak."""
+    return flops / (ms * 1e-3) / (mfu_report.peak_tflops() * 1e12)
+
+
+def check_config_cli(save: str, label: str, steps: int, layers: int, first: int = 1,
+                     epochs: int = CONFIG_EPOCHS) -> None:
+    """``check_cli_outputs`` at ``steps``, the time log's steps from
+    ``first``, and a finite validation error per epoch."""
+    check_cli_outputs(save, label, steps, layers)
+    numbers = [int(r[0]) for r in read_rows(os.path.join(save, train_cli.TIME_LOG))]
+    summary = read_rows(os.path.join(save, "progress_log_summary.csv"))
+    if numbers != list(range(first, first + steps)) or len(summary) != epochs or not all(
+            np.isfinite(float(v)) for r in summary for v in r):
+        raise AssertionError(f"{label}: steps {numbers}, summary {summary}")
+    log(f"[{label}] steps {numbers[0]}..{numbers[-1]}, validation per epoch "
+        f"{[float(r[1]) for r in summary]}")
+
+
+def run_config_cli(root: str, argv: list, label: str, want: dict) -> tuple:
+    """The train CLI on ``argv`` with the launch counts at 0 just before it;
+    its launches must equal ``want``. Returns (experiment directory,
+    launches, peak memory GiB)."""
+    log(f"[{label}] python -m {TRAIN_MODULE} {' '.join(argv)}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    save = run_train(root, argv, label)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{label}] launches {launches} (expected {want}); peak device memory {peak:.3f} GiB")
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
+    return save, launches, peak
+
+
+def configs_phase(seed: int, smi: str, per_step: dict, per_validation: dict):
+    """The three other published training configurations on the card
+    (``[configs]``). Returns their paths' launches and the kernels' numbers
+    at NYU's shapes."""
+    t_phase = time.perf_counter()
+    root = os.path.abspath(CONFIGS_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    weights = write_imagenet_files(os.path.join(root, "imagenet"), seed)
+    eval_paths = write_eval_data(os.path.join(root, "eval"), seed)
+    auto = LossConfig(with_auto_mask=True)
+    by_path, report, failures = {}, {}, []
+    steps_of = lambda n: {k: n * per_step[k] for k in WRAPPERS}
+    out = lambda *parts: os.path.join(root, *parts)
+
+    log("[configs] the four kernels at train_nyu.sh's shapes")
+    nyu_kernels = nyu_kernels_phase(np.random.RandomState(seed + 40), smi)
+
+    # train_resnet50_depth_256.sh: DispNet-50, B4 N2 832x256, --fused-steps 16.
+    log(f"[configs] ResNet-50 fp32 train step on the card against the CPU at B{CHECK_SHAPE[0]} "
+        f"N{CHECK_SHAPE[1]} {CHECK_SHAPE[3]}x{CHECK_SHAPE[2]} (tol {GRAD_RTOL_R50})")
+    check_step_against_cpu(seed + 41, np.random.RandomState(seed + 41), layers=R50, cfg=auto,
+                           grad_rtol=GRAD_RTOL_R50)
+    by_path["configs_r50_step"], times = bf16_step(
+        "configs r50", make_nets(seed + 42, R50), make_batch(np.random.RandomState(seed + 42)),
+        auto)
+    report["r50_eager"] = times
+    torch.cuda.empty_cache()
+    times, launches, n_steps = graphed_bf16("configs r50", make_nets(seed + 43, R50), R50_K,
+                                            seed, np.random.RandomState(seed + 43), auto)
+    by_path["configs_r50_graph16"] = launches
+    if launches != steps_of(n_steps):
+        raise AssertionError(f"K={R50_K} graph launches {launches}, "
+                             f"expected {steps_of(n_steps)}")
+    flops = mfu_report.flop_model(B, N, H, W, num_layers=R50)["useful"]
+    times["mfu"] = mfu(flops, times["graph_device_ms_per_step"])
+    times["gflop_per_step"] = flops / 1e9
+    report["r50_graph16"] = times
+    log(f"[configs] ResNet-50 K={R50_K} graph | {smi}: {times['graph_device_ms_per_step']:.4f} "
+        f"ms of device time per step, {flops / 1e9:.1f} GFLOP per step "
+        f"(mfu_report.flop_model), MFU {100 * times['mfu']:.3f}% of "
+        f"{mfu_report.peak_tflops()} TFLOP/s; peak {times['peak_memory_gib']:.3f} GiB; "
+        f"launches over {n_steps} steps {launches}")
+    log(f"[configs] ResNet-50 graphed fp32 K={GRAPH_K} against eager steps")
+    failures += graph_check(seed + 44, np.random.RandomState(seed + 44), False, R50)[2]
+    torch.cuda.empty_cache()
+
+    tree = write_jpeg_tree(out("kitti"), seed, R50_SCENES)
+    script = "train_resnet50_depth_256.sh"
+    argv = config_argv(script, tree, weights, {"--epochs": str(CONFIG_EPOCHS), "--epoch-size":
+                                                str(R50_EPOCH_SIZE), "--name": "r50_depth"})
+    steps = CONFIG_EPOCHS * R50_EPOCH_SIZE
+    save, by_path["configs_r50_cli"], peak = run_config_cli(root, argv, f"configs {script}",
+                                                            steps_of(steps))
+    check_config_cli(save, "configs r50 cli", steps, R50)
+    report["r50_cli"] = {**cli_times(save, "r50_cli", R50_EPOCH_SIZE, R50_EPOCH_SIZE),
+                         "peak_memory_gib": peak}
+    argv = config_argv(script, tree, weights, {"--epochs": "1", "--epoch-size": str(R50_K),
+                                               "--name": "r50_depth_resume"})
+    resumed, by_path["configs_r50_cli_resume"], _ = run_config_cli(
+        root, argv + ["--resume", save], f"configs {script} --resume", steps_of(R50_K))
+    check_config_cli(resumed, "configs r50 cli resume", R50_K, R50, steps + 1, 1)
+    log(f"[configs] {script} CLI | {smi}: {report['r50_cli']}")
+
+    # test_kitti_depth.sh with the DispNet-50 just trained.
+    text, _, by_path["configs_r50_test_disp"] = run_eval_cli(
+        test_disp, ["--resnet-layers", str(R50), "--img-height", str(H), "--img-width", str(W),
+                    "--pretrained-dispnet", os.path.join(save, "dispnet_model_best.pth.tar"),
+                    "--dataset-dir", eval_paths["depth"], "--output-dir", out("r50_depth")],
+        "configs test_disp r50")
+    pred = np.load(out("r50_depth", "predictions.npy"))
+    if pred.shape != (DEPTH_FRAMES, H, W) or not (np.isfinite(pred).all() and (pred > 0).all()):
+        raise AssertionError(f"test_disp --resnet-layers 50: predictions {pred.shape}")
+    text, _, by_path["configs_r50_eval_depth"] = run_eval_cli(
+        eval_depth, ["--dataset", "kitti", "--pred_depth", out("r50_depth", "predictions.npy"),
+                     "--gt_depth", eval_paths["gt"]], "configs eval_depth r50")
+    if printed(text, "&").size != 7:
+        raise AssertionError("eval_depth: 7 KITTI metrics expected")
+
+    # train_resnet50_pose_256.sh: the same step without --fused-steps.
+    tree = write_jpeg_tree(out("odometry"), seed + 1, POSE_SCENES)
+    script = "train_resnet50_pose_256.sh"
+    argv = config_argv(script, tree, weights, {"--epochs": "1", "--epoch-size": str(POSE_STEPS),
+                                               "--name": "r50_pose"})
+    val_batches = sum(-(-(n - N) // B) for _, n, split in POSE_SCENES if split == "val")
+    want = {k: POSE_STEPS * per_step[k] + val_batches * per_validation[k] for k in WRAPPERS}
+    save, by_path["configs_r50_pose_cli"], _ = run_config_cli(root, argv, f"configs {script}",
+                                                              want)
+    check_config_cli(save, "configs r50 pose cli", POSE_STEPS, R50, epochs=1)
+    report["r50_pose_cli"] = cli_times(save, "r50_pose_cli", 1, POSE_STEPS)
+    pose_file = os.path.join(save, "exp_pose_model_best.pth.tar")
+    text, secs, by_path["configs_test_pose"] = run_eval_cli(
+        test_pose, [pose_file, "--img-height", str(H), "--img-width", str(W), "--dataset-dir",
+                    eval_paths["odom"], "--sequences", "09", "--output-dir", out("pose")],
+        "configs test_pose")
+    snippets = np.load(out("pose", "predictions.npy"))
+    if snippets.shape != (ODOM_FRAMES - 4, 5, 3, 4) or not np.isfinite(snippets).all():
+        raise AssertionError(f"test_pose predictions {snippets.shape}")
+    text, secs, by_path["configs_test_vo"] = run_eval_cli(
+        test_vo, ["--img-height", str(H), "--img-width", str(W), "--sequence", "09",
+                  "--pretrained-posenet", pose_file, "--dataset-dir",
+                  os.path.join(eval_paths["odom"], "sequences"), "--output-dir", out("vo")],
+        "configs test_vo")
+    traj = np.loadtxt(out("vo", "09.txt"))
+    if traj.shape != (ODOM_FRAMES, 12) or not np.isfinite(traj).all():
+        raise AssertionError(f"test_vo trajectory {traj.shape}")
+    text, _, by_path["configs_eval_odom"] = run_eval_cli(
+        eval_odom, ["--result", out("vo"), "--gt_dir", eval_paths["poses"], "--align", "7dof",
+                    "--seqs", "9", "--no-plot", "--no-confirm"], "configs eval_odom")
+    printed(text, "ATE (m):")
+    log(f"[configs] {script} | {smi}: {report['r50_pose_cli']}; test_pose {snippets.shape[0]} "
+        f"snippets, test_vo {traj.shape[0]} poses from its PoseNet-18")
+    torch.cuda.empty_cache()
+
+    # train_nyu.sh: DispNet-18, pair folders, B16 N1 256x320.
+    log(f"[configs] NYU fp32 train step on the card against the CPU at B{NYU_CHECK_SHAPE[0]} "
+        f"N{NYU_CHECK_SHAPE[1]} {NYU_CHECK_SHAPE[3]}x{NYU_CHECK_SHAPE[2]} (tol {GRAD_RTOL_NYU})")
+    b, n, h, w = NYU_CHECK_SHAPE
+    check_step_against_cpu(seed + 51, np.random.RandomState(seed + 51), shape=NYU_CHECK_SHAPE,
+                           intrinsics=nyu_intrinsics(b, h, w), cfg=auto, grad_rtol=GRAD_RTOL_NYU)
+    rng = np.random.RandomState(seed + 52)
+    batch = {"tgt": rng.rand(NYU_B, NYU_H, NYU_W, 3).astype(np.float32),
+             "refs": rng.rand(NYU_B, NYU_N, NYU_H, NYU_W, 3).astype(np.float32),
+             "intrinsics": nyu_intrinsics(NYU_B, NYU_H, NYU_W)}
+    by_path["configs_nyu_step"], times = bf16_step("configs nyu", make_nets(seed + 52), batch,
+                                                   auto)
+    flops = mfu_report.flop_model(NYU_B, NYU_N, NYU_H, NYU_W)["useful"]
+    times["mfu"] = mfu(flops, times["train_step_bf16_device_ms"])
+    times["gflop_per_step"] = flops / 1e9
+    report["nyu_eager"] = times
+    log(f"[configs] NYU B{NYU_B} N{NYU_N} {NYU_W}x{NYU_H} bf16 step | {smi}: "
+        f"{times['train_step_bf16_device_ms']:.4f} ms of device time (a CUDA-graph replay), "
+        f"{flops / 1e9:.1f} GFLOP, MFU {100 * times['mfu']:.3f}%; peak "
+        f"{times['peak_memory_gib']:.3f} GiB")
+    del batch
+    torch.cuda.empty_cache()
+
+    nyu_root = out("nyu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_smoke_nyu.main([nyu_root, "--height", str(NYU_H), "--width", str(NYU_W),
+                             "--pairs", str(NYU_CLI_PAIRS)])
+    script = "train_nyu.sh"
+    argv = config_argv(script, os.path.join(nyu_root, "rectified"), weights,
+                       {"--epochs": str(CONFIG_EPOCHS), "--name": "nyu"})
+    steps = CONFIG_EPOCHS * (2 * NYU_CLI_PAIRS // NYU_B)
+    save, by_path["configs_nyu_cli"], peak = run_config_cli(root, argv, f"configs {script}",
+                                                            steps_of(steps))
+    check_config_cli(save, "configs nyu cli", steps, 18)
+    report["nyu_cli"] = {**cli_times(save, "nyu_cli", 1, steps // CONFIG_EPOCHS),
+                         "peak_memory_gib": peak}
+    log(f"[configs] {script} CLI | {smi}: {report['nyu_cli']}")
+    # test_nyu.sh's chain on the tree's test split.
+    test_root = os.path.join(nyu_root, "test")
+    _, _, by_path["configs_nyu_test_disp"] = run_eval_cli(
+        test_disp, ["--resnet-layers", "18", "--img-height", str(NYU_H), "--img-width",
+                    str(NYU_W), "--pretrained-dispnet",
+                    os.path.join(save, "dispnet_model_best.pth.tar"), "--dataset-dir",
+                    os.path.join(test_root, "color"), "--output-dir", out("nyu_results")],
+        "configs test_disp nyu")
+    pred = np.load(out("nyu_results", "predictions.npy"))
+    if pred.shape != (4, NYU_H, NYU_W) or not np.isfinite(pred).all():
+        raise AssertionError(f"test_disp nyu predictions {pred.shape}")
+    text, _, by_path["configs_nyu_eval_depth"] = run_eval_cli(
+        eval_depth, ["--dataset", "nyu", "--pred_depth", out("nyu_results", "predictions.npy"),
+                     "--gt_depth", os.path.join(test_root, "depth.npy"), "--img_dir",
+                     os.path.join(test_root, "color"), "--vis_dir", out("nyu_results")],
+        "configs eval_depth nyu")
+    if printed(text, "&").size != 6:
+        raise AssertionError("eval_depth --dataset nyu: 6 NYU metrics expected")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[configs] summary | {smi}: {json.dumps(report)}")
+    log(f"[configs] phase {time.perf_counter() - t_phase:.1f} s | {smi}")
+    return by_path, nyu_kernels, failures
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -3102,10 +3642,17 @@ def main(argv=None) -> int:
     by_path.update(tools_phase(args.seed, smi, by_path["train_step"], graph_device_ms))
     log("[scripts] the port's parity runbooks, SMOKE=1, on the card")
     by_path.update(scripts_phase(smi))
+    log("[configs] the other published training configurations: ResNet-50 KITTI depth "
+        "(--fused-steps 16) and pose, NYUv2 pair folders at B16")
+    config_paths, nyu_kernels, found = configs_phase(args.seed, smi, by_path["train_step"],
+                                                     by_path["validation_step"])
+    by_path.update(config_paths)
+    failures += found
     for k in kernels:
-        k["launches"] = by_path["train_cli_jpeg"][k["name"]]
+        k["launches"] = by_path["configs_r50_cli"][k["name"]]
         k["launches_per_train_step"] = by_path["train_step"][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
+        k["nyu_b16"] = nyu_kernels[k["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if failures:
         raise AssertionError(f"graph checks failed: {failures}")

@@ -10,8 +10,7 @@ resizes each prediction to the ground truth's size in the inverse-depth
 domain (``resize_linear``, OpenCV's ``INTER_LINEAR``), applies the depth
 range mask (and the Garg crop for KITTI), per-image median scaling and the
 clamps, and prints the KITTI (7) or NYU (6) metrics and the scaling-ratio
-statistics. ``--vis_dir`` writes side-by-side PNGs (``magma``: needs
-matplotlib).
+statistics. ``--vis_dir`` writes side-by-side PNGs (``magma``).
 """
 
 from __future__ import annotations

@@ -100,6 +100,39 @@ def test_scripts_run_only_port_clis_with_flags_their_parsers_accept(name, tmp_pa
     shutil.rmtree(tmp_path / "work", ignore_errors=True)
 
 
+@pytest.mark.parametrize("name", ["train_resnet50_depth_256.sh", "train_resnet50_pose_256.sh",
+                                  "train_nyu.sh"])
+def test_chip_smoke_config_runs_take_the_scripts_flags(name, tmp_path):
+    """``chip_smoke.py``'s ``[configs]`` phase reads each script's train
+    command: exactly the flags the script passes, apart from the listed
+    overrides (TRAIN_SET and the weights directory through the script's own
+    variables; ``--epochs``, ``--epoch-size``, ``--name``), and it refuses
+    any other override. It is read without a card."""
+    import chip_smoke
+
+    env = {"TRAIN_SET": "/data/set", "IMAGENET_WEIGHTS_DIR": "/data/weights"}
+    (command,) = [c for c in _recorded(name, env, tmp_path) if c[2] == f"{PACKAGE}.train"]
+    script = command[3:]
+    read = chip_smoke.script_train_argv(name, env["TRAIN_SET"], env["IMAGENET_WEIGHTS_DIR"])
+    assert read == script
+    assert read[0] == "/data/set" and read[read.index("--imagenet-weights-dir") + 1] == \
+        "/data/weights"
+    overrides = {"--epochs": "2", "--epoch-size": "16", "--name": "config"}
+    assert tuple(overrides) == chip_smoke.CONFIG_FLAG_OVERRIDES
+    got = chip_smoke.config_argv(name, env["TRAIN_SET"], env["IMAGENET_WEIGHTS_DIR"], overrides)
+
+    def without_overrides(argv):
+        return [a for i, a in enumerate(argv)
+                if a not in overrides and (i == 0 or argv[i - 1] not in overrides)]
+
+    assert without_overrides(got) == without_overrides(script)
+    for flag, value in overrides.items():
+        assert got.count(flag) == 1 and got[got.index(flag) + 1] == value
+    with pytest.raises(ValueError, match="may be overridden"):
+        chip_smoke.config_argv(name, env["TRAIN_SET"], env["IMAGENET_WEIGHTS_DIR"],
+                               {"--device": "cpu"})
+
+
 def test_kitti_runbook_smoke_on_the_cpu(tmp_path):
     """The whole chain through the port at the runbook's smoke sizes
     (64x128, B2, one epoch of 4 steps); its work directory is removed."""

@@ -1,7 +1,8 @@
 """The port's colormaps (``utils/viz.py``): ``bone`` and ``rainbow`` are
 built in numpy and equal matplotlib's ``LinearSegmentedColormap`` lookup
-within 1e-6 (and the JAX package's tables); they need no matplotlib, and
-without it ``magma`` raises instead of being replaced by another map."""
+within 1e-6, ``magma`` equals matplotlib's resampled ``ListedColormap``
+exactly (and all equal the JAX package's tables); they need no matplotlib,
+and without it ``plasma`` raises instead of being replaced by another map."""
 
 import os
 import subprocess
@@ -49,26 +50,31 @@ def test_tensor2array_and_depth_visualizer_equal_the_jax_package():
 
 
 def test_without_matplotlib_bone_and_rainbow_build_and_magma_raises(tmp_path):
+    # magma too builds without matplotlib (eval_depth --vis_dir, as
+    # test_nyu.sh runs it, on a machine without matplotlib); plasma raises.
     code = """
 import sys
 sys.modules["matplotlib"] = None
 from sc_sfmlearner_release_tpu_torch.utils import viz
 import numpy as np
 bone, rainbow = viz._get_cmap("bone"), viz._get_cmap("rainbow")
-assert bone.shape == rainbow.shape == (1024, 3)
+magma = viz._get_cmap("magma")
+assert bone.shape == rainbow.shape == magma.shape == (1024, 3)
 assert viz.tensor2array(np.ones((4, 5)), colormap="bone").shape == (4, 5, 3)
+assert viz.depth_visualizer(np.ones((4, 5)), "magma").shape == (4, 5, 3)
 try:
-    viz._get_cmap("magma")
+    viz._get_cmap("plasma")
 except ImportError as exc:
     assert "matplotlib" in str(exc), exc
-    print("magma raised")
-np.save(sys.argv[1], np.stack([bone, rainbow]))
+    print("plasma raised")
+np.save(sys.argv[1], np.stack([bone, rainbow, magma]))
 """
     out = str(tmp_path / "tables.npy")
     res = subprocess.run([sys.executable, "-c", code, out], capture_output=True, text=True,
                          cwd=REPO, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "magma raised" in res.stdout
+    assert "plasma raised" in res.stdout
     tables = np.load(out)
     np.testing.assert_array_equal(tables[0], viz._bone())
     np.testing.assert_array_equal(tables[1], viz._opencv_rainbow())
+    np.testing.assert_array_equal(tables[2], jviz._get_cmap("magma"))
