@@ -27,13 +27,15 @@ from typing import Dict, List
 
 import numpy as np
 
+from ..utils import profiling
 from .image_io import decode_png
 
 
 def _imread_f32(path: str) -> np.ndarray:
     from .native_io import imread_f32
 
-    return imread_f32(path)
+    with profiling.span("data.decode"):
+        return imread_f32(path)
 
 
 def _read_scene_list(root: str, name: str) -> List[str]:

@@ -20,11 +20,15 @@ whose aug stream depends on worker scheduling.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
+import itertools
 import queue
 import threading
 from typing import Dict, Iterator, List
 
 import numpy as np
+
+from ..utils import profiling
 
 # Batches staged ahead of the consumer by the loader's thread.
 PREFETCH = 2
@@ -118,11 +122,12 @@ class BatchLoader:
         out_q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
-        def load_one(i: int) -> Dict[str, np.ndarray]:
-            rng = np.random.default_rng(
-                np.random.SeedSequence([self.seed + self.epoch, int(i)])
-            )
-            return self.dataset.load(int(i), rng)
+        def load_one(b: int, i: int) -> Dict[str, np.ndarray]:
+            with profiling.span("data.sample", b):
+                rng = np.random.default_rng(
+                    np.random.SeedSequence([self.seed + self.epoch, int(i)])
+                )
+                return self.dataset.load(int(i), rng)
 
         local_bs = bs // self.process_count
 
@@ -148,7 +153,7 @@ class BatchLoader:
                     # this process's contiguous slice of the global batch
                     chunk = chunk[self.process_index * local_bs
                                   : (self.process_index + 1) * local_bs]
-                    samples = list(pool.map(load_one, chunk))
+                    samples = list(pool.map(functools.partial(load_one, b), chunk))
                     batch = {
                         k: _stack([s[k] for s in samples], self.pin_memory)
                         for k in samples[0]
@@ -159,8 +164,9 @@ class BatchLoader:
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()
         try:
-            while True:
-                batch = out_q.get()
+            for b in itertools.count():
+                with profiling.span("data.queue_wait", b):
+                    batch = out_q.get()
                 if batch is None:
                     return
                 if isinstance(batch, Exception):

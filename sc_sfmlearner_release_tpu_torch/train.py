@@ -53,7 +53,9 @@ dispatch crosses a multiple of ``--checkpoint-freq`` or ``--print-freq``
 (the line shows the last of its K steps); the logs keep one row per
 optimizer step. ``--profile-dir DIR`` writes a ``torch.profiler`` trace of
 exactly one dispatch into DIR: the first after the warm-up (with
-``--fused-steps``, after the warm-up and the capture).
+``--fused-steps``, after the warm-up and the capture), with the port's spans
+of that dispatch (``utils/profiling.py``: the loader's threads, the
+dispatch's wait and staging) as events of their own threads.
 
 Each optimizer step's time and data wait go to ``progress_log_time.csv`` in
 the experiment directory (``step``, ``data_wait_s``, ``step_s``; seconds):
@@ -531,12 +533,12 @@ def _train(args, device: torch.device, datasets) -> int:
         pending = []
         dispatches = []  # [first optimizer step, data wait, host time]
         t_data, t_step = AverageMeter(), AverageMeter()
-        end = time.time()
+        end = time.perf_counter()
         epoch_steps = 0
         for batch, _ in _grouped(device_prefetch(train_loader, device), fused):
             if epoch_steps >= epoch_size:
                 break
-            waited = time.time() - end
+            waited = time.perf_counter() - end
             t_data.update(waited)
             profile = (bool(args.profile_dir) and is_main and not profile_done
                        and n_iter >= profile_from)
@@ -564,7 +566,7 @@ def _train(args, device: torch.device, datasets) -> int:
                     tb_writer.add_scalar("total_loss", m["loss"], n_iter)
                 logger.train_update(min(epoch_steps, epoch_size),
                                     f"Time {t_step} Data {t_data} Loss {losses}")
-            now = time.time()
+            now = time.perf_counter()
             t_step.update(now - end)
             dispatches.append([start_step + prev_iter + 1, waited, now - end])
             end = now
@@ -576,7 +578,7 @@ def _train(args, device: torch.device, datasets) -> int:
         if pending:
             full_rows = torch.cat([torch.stack([m[k].reshape(-1) for k in METRIC_KEYS], 1)
                                    for m in pending]).double().cpu().tolist()
-            dispatches[-1][2] += time.time() - end  # the wait for those metrics
+            dispatches[-1][2] += time.perf_counter() - end  # the wait for those metrics
         times = [[first + j, waited / fused, secs / fused]
                  for first, waited, secs in dispatches for j in range(fused)]
         train_loss = float(np.mean([r[0] for r in full_rows])) if full_rows else 0.0

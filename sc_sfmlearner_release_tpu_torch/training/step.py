@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -54,6 +55,7 @@ from ..ops import KERNEL_WRAPPERS
 from ..ops.losses import photo_and_geometry_loss, resize_nearest, smooth_loss
 from ..ops.metrics import compute_depth_errors
 from ..parallel import distributed
+from ..utils import profiling
 from .state import optimizer_step
 
 PRECISIONS = ("bf16", "fp32")
@@ -329,6 +331,14 @@ class _GraphedSteps:
     the old graph would not update), the step count is read again, the
     graph is dropped, and the next two calls warm up and capture anew. A
     failed capture or replay raises; nothing falls back to the eager step.
+
+    Spans (``utils.profiling``, recorded under a profiler): ``step.wait_turn``
+    around the wait for the replay two calls back, ``step.stage`` around the
+    staging; none inside what the capture records. Counters: the host
+    seconds of the warm-up call (``setup.warm_s``) and of the capturing call
+    (``setup.capture_s``), and the captured graph's kernel nodes
+    (``step.graph_kernels``, counted on the kept graph before it is
+    instantiated).
     """
 
     def __init__(self, k: int, device: torch.device, optimizer: torch.optim.Optimizer,
@@ -342,24 +352,29 @@ class _GraphedSteps:
         self.launches = None
 
     def __call__(self, batches) -> Dict[str, torch.Tensor]:
+        start = time.perf_counter()
         if self.optimizer.state is not self.counted_state:
             self.step, self.counted_state = optimizer_step(self.optimizer), self.optimizer.state
             self.graph, self.warm = None, False
         _check_stacked(batches, self.k)
         if self.done[self.turn] is not None:
-            self.done[self.turn].synchronize()
-        self._stage(batches)
+            with profiling.span("step.wait_turn", self.step):
+                self.done[self.turn].synchronize()
+        with profiling.span("step.stage", self.step):
+            self._stage(batches)
         stream = torch.cuda.current_stream(self.device)
+        setup = None
         if not self.warm:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(stream)
             with torch.cuda.stream(side):
                 self._steps()
             stream.wait_stream(side)
-            self.warm = True
+            self.warm, setup = True, "setup.warm_s"
         else:
             if self.graph is None:
                 self._capture()
+                setup = "setup.capture_s"
             self.graph.replay()
             for fn, n in zip(KERNEL_WRAPPERS, self.launches):
                 fn.launches += n
@@ -368,6 +383,8 @@ class _GraphedSteps:
         self.done[self.turn] = done
         self.turn ^= 1
         self.step += self.k
+        if setup is not None:
+            profiling.counter(setup, time.perf_counter() - start)
         metrics = self.metrics.clone()
         return {key: metrics[:, i] for i, key in enumerate(METRIC_KEYS)}
 
@@ -408,10 +425,13 @@ class _GraphedSteps:
 
     def _capture(self) -> None:
         before = [fn.launches for fn in KERNEL_WRAPPERS]
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # Thread-local: the loader's threads pin host memory meanwhile.
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             self._steps()
+        profiling.counter("step.graph_kernels",
+                          profiling.graph_kernel_nodes(graph.raw_cuda_graph()))
+        graph.instantiate()  # what the capture's end does without keep_graph
         self.launches = [fn.launches - n for fn, n in zip(KERNEL_WRAPPERS, before)]
         for fn, n in zip(KERNEL_WRAPPERS, before):
             fn.launches = n

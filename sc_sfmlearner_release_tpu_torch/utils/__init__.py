@@ -1,6 +1,6 @@
 from .viz import tensor2array, depth_visualizer
 from .meters import AverageMeter, ProgressLogger, TermLogger, make_logger
-from .profiling import trace, StepTimer, enable_nan_debugging
+from .profiling import trace, enable_nan_debugging
 
 __all__ = [
     "tensor2array",
@@ -10,6 +10,5 @@ __all__ = [
     "TermLogger",
     "make_logger",
     "trace",
-    "StepTimer",
     "enable_nan_debugging",
 ]
