@@ -1,7 +1,9 @@
 """Port host data against the JAX package's (CPU): the dataset crawlers,
 the packed format, the batch loader and the host transforms are the port's
 own copies and must give bit-equal batches for the same seed and epoch;
-``device_prefetch`` on the CPU.
+the batch loader's schedule (samples of the next batches in flight, rows
+written by the threads) against a plain sequential reading, its errors and
+its early exits; ``device_prefetch`` on the CPU.
 
 The JAX package decodes JPEGs through its C++ extension where it is built
 (within one grey level of imageio's decoder, ``tests/test_native_io.py``);
@@ -12,6 +14,10 @@ imageio here, so that the comparison is exact.
 
 import json
 import os
+import random
+import sys
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,7 +28,9 @@ from sc_sfmlearner_release_tpu.data import native_io as jnative_io
 from sc_sfmlearner_release_tpu.data import transforms as jtransforms
 from sc_sfmlearner_release_tpu_torch import data
 from sc_sfmlearner_release_tpu_torch.data import native_io, transforms
+from sc_sfmlearner_release_tpu_torch.data.loader import PREFETCH
 from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch
+from sc_sfmlearner_release_tpu_torch.utils import profiling
 
 
 H, W = 24, 40
@@ -195,6 +203,188 @@ def test_batch_loader_raises_a_workers_error():
 
     with pytest.raises(OSError, match="cannot read sample"):
         list(data.BatchLoader(Broken(), 2, num_workers=2))
+
+
+class _DrawSet:
+    """Samples drawn from their ``rng`` in several dtypes and ranks, each
+    load after ``delay`` and a short random sleep, so that the threads
+    finish out of order. ``fail`` names an index whose load raises at once;
+    every load's thread is recorded."""
+
+    def __init__(self, n, fail=None, delay=0.0):
+        self.n, self.fail, self.delay = n, fail, delay
+        self.threads = set()
+        self.started = 0
+        self._lock = threading.Lock()
+
+    def __len__(self):
+        return self.n
+
+    def load(self, i, rng):
+        with self._lock:
+            self.threads.add(threading.current_thread())
+            self.started += 1
+        if i == self.fail:  # at once, before the samples around it end
+            raise OSError(f"cannot read sample {i}")
+        time.sleep(self.delay + random.random() * 0.003)
+        return {"tgt": rng.random((4, 5, 3), np.float32) + i,
+                "refs": rng.integers(0, 256, (2, 4, 5, 3), np.uint8),
+                "intrinsics": np.eye(3) * (i + rng.random()),
+                "index": np.int32(i)}
+
+
+def _sequential(ds, batch_size, shuffle, drop_last, seed, epoch, process_index=0,
+                process_count=1):
+    """The loader's batches read one sample at a time on this thread, in
+    the epoch's order, and stacked."""
+    idx = np.arange(len(ds))
+    if shuffle:
+        np.random.default_rng(seed + epoch).shuffle(idx)
+    n = len(ds) // batch_size if drop_last else -(-len(ds) // batch_size)
+    local = batch_size // process_count
+    out = []
+    for b in range(n):
+        chunk = idx[b * batch_size : (b + 1) * batch_size]
+        n_valid = len(chunk)
+        chunk = np.concatenate([chunk, np.repeat(chunk[-1:], batch_size - n_valid)])
+        chunk = chunk[process_index * local : (process_index + 1) * local]
+        samples = [ds.load(int(i), np.random.default_rng(np.random.SeedSequence([seed + epoch,
+                                                                                  int(i)])))
+                   for i in chunk]
+        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        batch["_n_valid"] = np.asarray(n_valid, np.int32)
+        out.append(batch)
+    return out
+
+
+def _drain(loader, timeout=60.0):
+    """``list(loader)`` on a thread of its own, bounded by ``timeout``."""
+    result = {}
+
+    def run():
+        try:
+            result["batches"] = list(loader)
+        except Exception as exc:  # raised again below
+            result["error"] = exc
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    assert not t.is_alive(), f"the loader did not finish within {timeout} s"
+    if "error" in result:
+        raise result["error"]
+    return result["batches"]
+
+
+@pytest.fixture
+def fast_switching():
+    """Switch threads every microsecond, so that a lost update would show."""
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        yield
+    finally:
+        sys.setswitchinterval(old)
+
+
+@pytest.mark.parametrize("workers,batch_size,mode,processes", [
+    (w, bs, mode, 1) for w in (1, 3, 8) for bs in (3, 4) for mode in ("train", "valid")
+] + [(3, 4, "train", 2)])
+def test_batch_loader_matches_a_sequential_reading(fast_switching, workers, batch_size, mode,
+                                                   processes):
+    """Bit-equal batches, ``_n_valid`` included, over two epochs: training
+    (shuffled, the partial batch dropped) and validation (in order, the
+    last batch padded), and each process's slice of the global batch."""
+    ds = _DrawSet(11)
+    kw = dict(batch_size=batch_size, shuffle=mode == "train", drop_last=mode == "train",
+              seed=2**31 + 7)
+    for index in range(processes):
+        loader = data.BatchLoader(ds, num_workers=workers, process_index=index,
+                                  process_count=processes, **kw)
+        for epoch in (0, 1):
+            loader.set_epoch(epoch)
+            got = _drain(loader)
+            want = _sequential(ds, epoch=epoch, process_index=index, process_count=processes,
+                               **kw)
+            assert len(got) == len(want) == len(loader)
+            for mine, theirs in zip(got, want):
+                _assert_samples_equal(mine, theirs)
+            assert int(got[-1]["_n_valid"]) == (batch_size if mode == "train"
+                                                else 11 % batch_size)
+
+
+def test_batch_loader_loads_across_batch_boundaries():
+    """With batches of 2, all 8 threads load at once: samples of the next
+    batches are in flight. No timing is asserted."""
+
+    class Sleepy:
+        def __init__(self):
+            self.lock = threading.Lock()
+            self.now = self.most = 0
+            self.threads = set()
+
+        def __len__(self):
+            return 48
+
+        def load(self, i, rng):
+            with self.lock:
+                self.now += 1
+                self.most = max(self.most, self.now)
+                self.threads.add(threading.current_thread())
+            time.sleep(0.02)  # releases the GIL, as decode and resize do
+            with self.lock:
+                self.now -= 1
+            return {"x": np.full(3, i, np.int64)}
+
+    ds = Sleepy()
+    batches = _drain(data.BatchLoader(ds, 2, num_workers=8, shuffle=False))
+    assert [int(b["x"][0, 0]) for b in batches] == list(range(0, 48, 2))
+    assert ds.most >= 6  # one batch at a time would load at most 2
+    assert len(ds.threads) <= 8
+    assert profiling.counters()["data.in_flight_mean"] > 2
+
+
+@pytest.mark.parametrize("workers", [1, 8])
+def test_batch_loader_raises_a_samples_error_in_place_of_its_batch(workers):
+    """Index 5 (batch 2 of 2) fails while the batches before it still
+    load: batches 0 and 1 come, then the error, and no batch after it."""
+    ds = _DrawSet(40, fail=5, delay=0.02)
+    loader = data.BatchLoader(ds, 2, num_workers=workers, shuffle=False, seed=3)
+    got = []
+    with pytest.raises(OSError, match="cannot read sample 5"):
+        for batch in loader:
+            got.append(batch)
+    want = _sequential(_DrawSet(6), 2, False, True, 3, 0)[:2]
+    assert len(got) == 2
+    for mine, theirs in zip(got, want):
+        _assert_samples_equal(mine, theirs)
+    assert ds.started < len(ds)  # nothing started after the failure was seen
+
+
+def test_batch_loader_stops_its_threads_when_left_early():
+    """A ``break`` after the first batch starts no more samples and leaves
+    no loader thread alive."""
+    ds = _DrawSet(400)
+    for batch in data.BatchLoader(ds, 2, num_workers=4, shuffle=True, seed=1):
+        time.sleep(0.1)  # time for the threads to run up to the staging limit
+        break
+    for t in ds.threads:
+        t.join(timeout=5)
+        assert not t.is_alive()
+    assert 0 < len(ds.threads) <= 4
+    # the first batch taken: PREFETCH batches staged and 4 samples beyond
+    assert ds.started <= (1 + PREFETCH) * 2 + 4
+
+
+def test_batch_loader_yields_numpy_arrays_without_pinning():
+    ds = _DrawSet(5)
+    (batch, _) = list(data.BatchLoader(ds, 2, num_workers=3, pin_memory=False))
+    sample = ds.load(0, np.random.default_rng(0))
+    assert set(batch) == set(sample) | {"_n_valid"}
+    for k, v in sample.items():
+        assert type(batch[k]) is np.ndarray and batch[k].dtype == np.asarray(v).dtype, k
+        assert batch[k].shape == (2,) + np.shape(v), k
+    assert type(batch["_n_valid"]) is np.ndarray and batch["_n_valid"].dtype == np.int32
 
 
 def test_imageio_missing_names_the_packed_path(tree, monkeypatch, tmp_path):
