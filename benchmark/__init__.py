@@ -6,9 +6,10 @@ checks the first steps against a plain PyTorch reference:
 
     python3 -m benchmark.run --workload CELL --seed N --seconds S --trace 0|1
 
-Everything a cell needs is found by name: ``configs/<config>.json``,
-``traffic/<mix>.json``, ``limits/<cell>.json`` and, for each per-layer
-metric, ``metrics/<metric>.py``. The yardsticks (peaks, FLOP and byte
-counts, kernel groups), the data generator and the reference live here and
-import nothing of the port.
+Everything a cell needs is found by name: ``configs/<config>.json``, the
+configuration's family ``families/<family>/`` (its program, reference, FLOP
+count and kernel bytes), ``traffic/<mix>.json``, ``limits/<cell>.json`` and,
+for each per-layer metric, ``metrics/<metric>.py``. The yardsticks (peaks,
+FLOP and byte counts, kernel groups), the data generator and the references
+live here and import nothing of the port.
 """

@@ -3,18 +3,19 @@
 Set-up builds the one train step that the window drives, as the port's
 train CLI composes it (``train.py``): the dataset (a JPEG tree from the
 pool, packed once by ``data.packed.pack_dataset`` for the packed mixes),
-``BatchLoader`` -> ``device_prefetch`` -> groups of K stacked batches ->
-``make_train_step(fused_steps=K)`` with a capturable Adam, the device
-augmentation for raw uint8 frames or the host ``train_transform`` for
-JPEGs. Its first two dispatches (on the card: K eager steps, then the
-CUDA graph's capture and first replay) train on the loader's first
-batches, and the optimizer's step hook reads what the reference checks:
-every leaf's gradient as Adam holds it after step 1 and its change after
-step 3. The state before the second dispatch, and that dispatch's losses
-and changes, are kept too, so that the check also holds a replay of the
-graph. The window then dispatches until ``seconds`` have passed and waits
-for the card. With ``trace`` the window also times each dispatch on the
-card (CUDA events) and a few dispatches after it run under the profiler.
+``BatchLoader`` -> ``device_prefetch`` -> groups of K stacked batches, the
+host ``train_transform`` for JPEG mixes that augment on the host, and the
+configuration's family's program (``families/<family>/program.py``): its
+networks, optimizer and train step of K steps a dispatch. Its first two
+dispatches (on the card: K eager steps, then the CUDA graph's capture and
+first replay) train on the loader's first batches, and the optimizer's step
+hook reads what the reference checks: every leaf's gradient as Adam holds
+it after step 1 and its change after step 3. The state before the second
+dispatch, and that dispatch's losses and changes, are kept too, so that the
+check also holds a replay of the graph. The window then dispatches until
+``seconds`` have passed and waits for the card. With ``trace`` the window
+also times each dispatch on the card (CUDA events) and a few dispatches
+after it run under the profiler.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Callable, Dict
 import numpy as np
 import torch
 
-from . import dataset, trace as tracing
+from . import dataset, spec, trace as tracing
 
 CHECKED_STEPS = 3
 TRACED_DISPATCHES = 2
@@ -90,42 +91,17 @@ def train_set(cfg: dict, traffic: dict, root: str):
 
 
 class Program:
-    """The system under test, built once: networks, optimizer, the train
-    step and its feed."""
+    """The system under test, built once: the family's leaves, optimizer
+    and train step, and the feed of its batches."""
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device, root: str):
         from sc_sfmlearner_release_tpu_torch.data import BatchLoader
-        from sc_sfmlearner_release_tpu_torch.data.device_augment import (AugmentConfig,
-                                                                         make_device_augment)
-        from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
         from sc_sfmlearner_release_tpu_torch.parallel import distributed
-        from sc_sfmlearner_release_tpu_torch.training import (LossConfig, make_optimizer,
-                                                              make_train_step)
-
-        from .weights import init_weights
 
         self.k = cfg["fused_steps"]
         self.device = device
-        self.disp = DispNet(cfg["resnet_layers"]).to(device)
-        self.pose = PoseNet(cfg["pose_layers"]).to(device)
-        init_weights({"disp": self.disp, "pose": self.pose}, seed, device)
-        self.named = [(f"disp.{n}", p) for n, p in self.disp.named_parameters()] + \
-            [(f"pose.{n}", p) for n, p in self.pose.named_parameters()]
-        self.optimizer = make_optimizer(
-            self.disp, self.pose, cfg["lr"], cfg["momentum"], cfg["beta"], cfg["weight_decay"],
-            capturable=self.k > 1 and device.type == "cuda")
-        # Every rank starts from rank 0's networks and optimizer state, as
-        # the train CLI does (nothing without a process group).
-        distributed.replicate(self.disp, self.pose, self.optimizer)
-        loss_cfg = LossConfig(
-            photo_weight=cfg["photo_loss_weight"], smooth_weight=cfg["smooth_loss_weight"],
-            geometry_weight=cfg["geometry_consistency_weight"], num_scales=cfg["num_scales"],
-            with_ssim=cfg["with_ssim"], with_mask=cfg["with_mask"],
-            with_auto_mask=cfg["with_auto_mask"], padding_mode=cfg["padding_mode"])
-        augment = make_device_augment(AugmentConfig()) if traffic["device_augment"] else None
-        self.step = make_train_step(self.disp, self.pose, self.optimizer, loss_cfg,
-                                    device=device, precision=cfg["precision"],
-                                    augment_fn=augment, aug_seed=seed, fused_steps=self.k)
+        built = spec.family(cfg["family"], "program").build(cfg, traffic, seed, device)
+        self.named, self.optimizer, self.step = built["named"], built["optimizer"], built["step"]
         self.loader = BatchLoader(
             train_set(cfg, traffic, root), cfg["batch_size"] * distributed.data_count(),
             shuffle=True, num_workers=traffic["workers"], drop_last=True, seed=seed,
@@ -233,14 +209,12 @@ class Program:
 
 def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device,
         log: Callable[[str], None] = print, root: str = None,
-        go: Callable[[float], bool] = None, ready: Callable[[], None] = None,
-        profile: bool = True) -> Dict:
+        go: Callable[[float], bool] = None, ready: Callable[[], None] = None) -> Dict:
     """Set-up, window and (``trace``) the profiled dispatches of one run in
     this process; the program is freed before returning. ``root`` is a
     dataset already built (else one is built here, and removed after);
     under a process group ``go`` is the ranks' shared decision to dispatch
-    again, ``ready`` their meeting before the window, and ``profile``
-    whether this rank's traced dispatches run under the profiler."""
+    again and ``ready`` their meeting before the window."""
     cuda = device.type == "cuda"
     workdir = None
     program = None
@@ -269,7 +243,7 @@ def run(cfg: dict, traffic: dict, seed: int, seconds: float, trace: bool, device
         traced = None
         if trace:
             traced = tracing.profile(program.step, program.feed, TRACED_DISPATCHES, program.k,
-                                     device, enabled=profile)
+                                     device)
         return {"first": first, "window": win, "window_start": window_start,
                 "peak_bytes": peak, "trace": traced}
     finally:

@@ -1,4 +1,4 @@
-"""The plain PyTorch reference of the benchmark's training cells.
+"""The plain PyTorch reference of the ``sc_depth`` family's training cells.
 
 SC-Depth's train step written out in plain ``torch`` ops, independent of
 the port: the ResNet encoders (BasicBlock and Bottleneck) with train-mode
@@ -16,6 +16,9 @@ to float8 e4m3 and the gradient of its output to e5m2 (one scale per
 tensor; the rounding of the input and weight passes the gradient straight
 through) and computes the rest in float32: the control, one precision
 below the configuration's bf16 convolutions. Imports neither JAX nor anything of the port.
+
+``Step`` is what the shared ``follow.py`` calls: the networks at a
+precision, Adam over their leaves and one batch's loss.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from benchmark.weights import init_weights
 
 PRECISIONS = ("fp32", "bf16", "fp8")
 
@@ -400,3 +405,30 @@ class Adam:
             c1, c2 = 1 - b1 ** self.t[i], 1 - b2 ** self.t[i]
             denom = (self.v[i].sqrt() / math.sqrt(c2)).add_(self.eps)
             p.addcdiv_(self.m[i], denom, value=-self.lr / c1)
+
+
+class Step:
+    """The reference's train step at ``precision`` (TF32 off): DispNet and
+    PoseNet, seeded by ``weights.init_weights`` where ``seed`` is given,
+    their leaves by name (``named``: ``disp.<param>``, ``pose.<param>``),
+    Adam over them (``optimizer``) and one batch's loss (``loss``)."""
+
+    def __init__(self, cfg: dict, device, precision: str, seed: int = None):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.cfg = cfg
+        self.disp = DispNet(cfg["resnet_layers"]).to(device)
+        self.pose = PoseNet(cfg["pose_layers"]).to(device)
+        set_precision((self.disp, self.pose), precision)
+        if seed is not None:
+            init_weights({"disp": self.disp, "pose": self.pose}, seed, device)
+        self.named = [(f"disp.{n}", p) for n, p in self.disp.named_parameters()] + \
+            [(f"pose.{n}", p) for n, p in self.pose.named_parameters()]
+        self.optimizer = Adam([p for _, p in self.named], cfg["lr"],
+                              (cfg["momentum"], cfg["beta"]), weight_decay=cfg["weight_decay"])
+
+    def loss(self, batch, share=None) -> torch.Tensor:
+        """The total loss of ``batch`` (tgt, refs, k; ``loss``'s shapes);
+        ``share`` as ``loss``'s."""
+        tgt, refs, k = batch
+        return loss(self.disp, self.pose, tgt, refs, k, self.cfg, share)[0]

@@ -9,10 +9,11 @@ port's documented rule: epoch ``e`` shuffles the snippet indices with
 pool's JPEGs, the host transforms (flip, scale-crop through PIL's resize,
 normalize) or the device augmentation (one draw per sample from the CPU
 generator of ``SeedSequence([seed, step])``, resolved into a separable
-affine map and resampled bilinearly), the weights (``weights.py``), and
-then trains ``steps`` steps of ``reference.py``. It returns each step's
-loss, every leaf's gradient norm at the first step, and every leaf's
-change after the last.
+affine map and resampled bilinearly), and then trains ``steps`` steps of
+the configuration's family's reference (``families/<family>/reference.py``'s
+``Step``: its networks seeded from the seed, Adam, a batch's loss). It
+returns each step's loss, every leaf's gradient norm at the first step, and
+every leaf's change after the last.
 
 ``follow_from`` checks the program's first CUDA-graph replay: it starts
 from the program's own state before that dispatch (parameters, Adam's
@@ -27,8 +28,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from . import dataset, reference
-from .weights import init_weights
+from . import dataset, spec
 
 MEAN, STD = 0.45, 0.225
 
@@ -177,47 +177,30 @@ class Batches:
         return frames[:, 0], frames[:, 1:], k
 
 
-def _nets(cfg: dict, device, precision: str):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    disp = reference.DispNet(cfg["resnet_layers"]).to(device)
-    pose = reference.PoseNet(cfg["pose_layers"]).to(device)
-    reference.set_precision((disp, pose), precision)
-    nets = {"disp": disp, "pose": pose}
-    named = [(f"disp.{n}", p) for n, p in disp.named_parameters()] + \
-        [(f"pose.{n}", p) for n, p in pose.named_parameters()]
-    return nets, named
-
-
-def _train(cfg: dict, nets: dict, named, opt, batches, steps, drop_half: bool,
-           no_exchange: bool, on_first=None) -> List[float]:
-    """Train on ``batches(s)`` for each ``s`` of ``steps``; each step's loss.
-    ``on_first`` sees the first step's gradients before Adam's update."""
-    params = [p for _, p in named]
+def _train(cfg: dict, side, batches, steps, drop_half: bool, no_exchange: bool,
+           on_first=None) -> List[float]:
+    """Train the reference ``side`` on ``batches(s)`` for each ``s`` of
+    ``steps``; each step's loss. ``on_first`` sees the first step's
+    gradients before the optimizer's update."""
+    params = [p for _, p in side.named]
     losses = []
     for i, s in enumerate(steps):
-        tgt, refs, k = batches(s)
+        batch = batches(s)
         if drop_half:
-            half = tgt.shape[0] // 2
-            tgt, refs, k = tgt[:half], refs[:half], k[:half]
+            batch = tuple(x[:x.shape[0] // 2] for x in batch)
         share = None
         if no_exchange:
-            share = torch.zeros(tgt.shape[0], device=tgt.device)
+            share = torch.zeros(batch[0].shape[0], device=batch[0].device)
             share[:cfg["batch_size"]] = 1.0
         for p in params:
             p.grad = None
-        total, _ = reference.loss(nets["disp"], nets["pose"], tgt, refs, k, cfg, share)
+        total = side.loss(batch, share)
         total.backward()
         losses.append(float(total.detach()))
         if i == 0 and on_first is not None:
             on_first()
-        opt.step()
+        side.optimizer.step()
     return losses
-
-
-def _adam(cfg: dict, named):
-    return reference.Adam([p for _, p in named], cfg["lr"], (cfg["momentum"], cfg["beta"]),
-                          weight_decay=cfg["weight_decay"])
 
 
 def _changes(named, start) -> Dict[str, float]:
@@ -228,25 +211,23 @@ def follow(cfg: dict, traffic: dict, seed: int, steps: int = 3, device="cuda",
            precision: str = "fp32", drop_half: bool = False,
            no_exchange: bool = False) -> Dict:
     """``steps`` reference train steps from the seed: ``{"losses": [...],
-    "grad1": {leaf: norm}, "update": {leaf: norm}}`` (leaves named
-    ``disp.<param>`` and ``pose.<param>``). Planted faults: ``drop_half``
-    trains on the first half of each batch only; ``no_exchange`` trains and
-    reports rank 0's share of the global loss alone, as a rank whose
-    gradients and metrics are never summed over the ranks would."""
+    "grad1": {leaf: norm}, "update": {leaf: norm}}`` (leaves named as the
+    family's reference names them, as its program does). Planted faults:
+    ``drop_half`` trains on the first half of each batch only;
+    ``no_exchange`` trains and reports rank 0's share of the global loss
+    alone, as a rank whose gradients and metrics are never summed over the
+    ranks would."""
     batches = Batches(cfg, traffic, seed, device, dataset.pool_files(traffic))
-    nets, named = _nets(cfg, device, precision)
-    init_weights(nets, seed, device)
-    opt = _adam(cfg, named)
-    start = [p.detach().clone() for _, p in named]
+    side = spec.family(cfg["family"], "reference").Step(cfg, device, precision, seed)
+    start = [p.detach().clone() for _, p in side.named]
     grad1 = {}
 
     def read_grads():
         grad1.update({n: float(p.grad.norm()) if p.grad is not None else 0.0
-                      for n, p in named})
+                      for n, p in side.named})
 
-    losses = _train(cfg, nets, named, opt, batches, range(steps), drop_half, no_exchange,
-                    read_grads)
-    return {"losses": losses, "grad1": grad1, "update": _changes(named, start)}
+    losses = _train(cfg, side, batches, range(steps), drop_half, no_exchange, read_grads)
+    return {"losses": losses, "grad1": grad1, "update": _changes(side.named, start)}
 
 
 def follow_from(cfg: dict, traffic: dict, seed: int, replay: Dict, device="cuda",
@@ -262,16 +243,16 @@ def follow_from(cfg: dict, traffic: dict, seed: int, replay: Dict, device="cuda"
     previous dispatch's batches again. ``drop_half`` and ``no_exchange`` as
     in ``follow``."""
     batches = Batches(cfg, traffic, seed, device, dataset.pool_files(traffic))
-    nets, named = _nets(cfg, device, precision)
-    state = replay["state"]
+    side = spec.family(cfg["family"], "reference").Step(cfg, device, precision)
+    named, state = side.named, replay["state"]
     with torch.no_grad():
         for n, p in named:
             p.copy_(state[n]["param"].to(device))
-    opt = _adam(cfg, named)
-    opt.load([state[n]["exp_avg"] for n, _ in named], [state[n]["exp_avg_sq"] for n, _ in named],
-             [state[n]["step"] for n, _ in named])
+    side.optimizer.load([state[n]["exp_avg"] for n, _ in named],
+                        [state[n]["exp_avg_sq"] for n, _ in named],
+                        [state[n]["step"] for n, _ in named])
     start = [p.detach().clone() for _, p in named]
     first, k = replay["first"], len(replay["losses"])
     steps = range(first - k, first) if stale else range(first, first + k)
-    losses = _train(cfg, nets, named, opt, batches, steps, drop_half, no_exchange)
+    losses = _train(cfg, side, batches, steps, drop_half, no_exchange)
     return {"losses": losses, "update": _changes(named, start)}

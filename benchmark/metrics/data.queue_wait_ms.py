@@ -1,6 +1,7 @@
 """The host's wait on the loader's queue per optimizer step in the traced
 dispatches, ms: the program's ``data.queue_wait`` spans (the consumer's
-``out_q.get()`` in ``data/loader.py``), over their optimizer steps."""
+wait for its next batch, ``_Pass.take`` in ``data/loader.py``), over their
+optimizer steps."""
 
 from benchmark import spans
 

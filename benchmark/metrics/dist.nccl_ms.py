@@ -9,5 +9,6 @@ def read(rec):
     t = rec["trace"]
     if not t:
         return None
-    us = sum(e - s for n, s, e in t["kernels"] if yardstick.group_of(n) == "nccl")
+    us = sum(e - s for n, s, e in t["kernels"]
+             if yardstick.group_of(n, rec.get("groups", ())) == "nccl")
     return us / 1e3 / t["steps"] if us > 0 else None

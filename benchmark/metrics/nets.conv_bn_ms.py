@@ -10,5 +10,5 @@ def read(rec):
     if not t:
         return None
     us = sum(e - s for n, s, e in t["kernels"]
-             if yardstick.group_of(n) in yardstick.NETWORK_GROUPS)
+             if yardstick.group_of(n, rec.get("groups", ())) in yardstick.NETWORK_GROUPS)
     return us / 1e3 / t["steps"] if us > 0 else None

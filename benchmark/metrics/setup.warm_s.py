@@ -6,4 +6,4 @@ from benchmark import spans
 
 
 def read(rec):
-    return spans.counter("setup.warm_s")
+    return spans.counter("setup.warm_s", rec)

@@ -1,6 +1,7 @@
 """The ssim_bwd kernel's share of its bandwidth bound in the traced
-dispatches, %: the bytes of its launches at the cell's shapes
-(``yardstick.KERNEL_BYTES``) at 3.35 TB/s, over its device time per step."""
+dispatches, %: the bytes of its launches at the cell's shapes (the
+family's ``kernels.KERNEL_BYTES``, as ``rec["kernel_bytes"]``) at
+3.35 TB/s, over its device time per step."""
 
 from benchmark import yardstick
 

@@ -6,5 +6,5 @@ from benchmark import spans
 
 
 def read(rec):
-    nodes = spans.counter("step.graph_kernels")
+    nodes = spans.counter("step.graph_kernels", rec)
     return None if nodes is None else nodes / rec["config"]["fused_steps"]

@@ -4,9 +4,11 @@
 the cards). The dataset is built once, before the ranks start. Every rank
 runs the same set-up and window; rank 0 decides when the window ends and
 tells the others over a gloo group (every dispatch holds collectives, so
-the ranks must dispatch alike), and only rank 0 runs its traced
-dispatches under the profiler. Rank 0's readings stand for the run, the
-peak memory is the fullest card's.
+the ranks must dispatch alike). Every rank runs its traced dispatches
+under the profiler, so that they stay in step; rank 0's trace, spans and
+counters stand for the run (carried to the reader's process), its busy
+seconds beside its own traced window, and the peak memory is the fullest
+card's.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, Dict
 import torch
 
 from . import cell as harness
+from . import spans
 
 
 def _log(msg: str) -> None:
@@ -42,9 +45,11 @@ def _rank(device, cfg: dict, traffic: dict, seed: int, seconds: float, trace: bo
 
     out = harness.run(cfg, traffic, seed, seconds, trace, device,
                       _log if rank == 0 else (lambda msg: None), root=root, go=go,
-                      ready=lambda: dist.barrier(group=gloo), profile=rank == 0)
+                      ready=lambda: dist.barrier(group=gloo))
     if rank:
         return {"peak_bytes": out["peak_bytes"], "failed": out["window"]["failed"]}
+    if trace:
+        spans.carry(out)
     return out
 
 

@@ -51,14 +51,16 @@ def card_line() -> str:
 
 
 def records(cell: spec.Cell, run: dict) -> dict:
-    """What the per-layer readers read (``metrics/*.py``)."""
+    """What the per-layer readers read (``metrics/*.py``): the family's
+    launch shapes and each of its kernels' bytes at them, and its own
+    kernel-name groups (``families/<family>/kernels.py``)."""
     cfg, traffic = cell.config, cell.traffic
-    n = cfg["sequence_length"] - 1
-    world = traffic.get("world_size", 1)
-    return {"config": cfg, "traffic": traffic, "chips": cell.chips,
-            "shapes": {"global_batch": cfg["batch_size"] * world,
-                       "pairs": 2 * n * cfg["batch_size"],
-                       "height": cfg["height"], "width": cfg["width"]},
+    kernels = spec.family(cfg["family"], "kernels")
+    shapes = dict(kernels.shapes(cfg, traffic),
+                  global_batch=cfg["batch_size"] * traffic.get("world_size", 1))
+    return {"config": cfg, "traffic": traffic, "chips": cell.chips, "shapes": shapes,
+            "kernel_bytes": {k: fn(shapes) for k, fn in kernels.KERNEL_BYTES.items()},
+            "groups": getattr(kernels, "GROUPS", ()),
             "window": run["window"], "trace": run["trace"]}
 
 
@@ -104,10 +106,9 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     out = {"correct": False, "attempted": win["dispatches"], "failed": win["failed"],
            "metrics": metrics, "device": info}
     if trace and run["trace"]:
-        busy_us, _ = tracing.busy_and_span_us(run["trace"]["kernels"])
-        info["busy_s"] = busy_us * 1e-6
+        info["busy_s"] = run["trace"]["busy_s"]
         info["window_s"] = run["trace"]["wall_s"]
-        out["breakdown"] = tracing.breakdown(run["trace"])
+        out["breakdown"] = tracing.breakdown(run["trace"], rec["groups"])
     first = run["first"]
     del run
     t = time.perf_counter()
@@ -116,6 +117,10 @@ def measure(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     ref["replay"] = follow.follow_from(cfg, traffic, seed, first["replay"], device,
                                        precision=precision)
     log(f"[reference] {time.perf_counter() - t:.3f} s")
+    # Each replayed step's loss on both sides, so that a gap names its step
+    # and its side.
+    log(f"[replay losses] program {json.dumps(first['replay']['losses'])} "
+        f"reference {json.dumps(ref['replay']['losses'])}")
     values = check.numbers(first, ref)
     log(f"[numbers] {json.dumps(values)}")
     ok, out["checked"] = check.judge(values, cell.limits["limits"])

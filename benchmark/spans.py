@@ -28,17 +28,34 @@ def _profiling():
 
 def aligned(rec: dict) -> Optional[list]:
     """The program's spans of the traced dispatches, microseconds on the
-    trace's host clock (``name``, ``start``, ``end``, ``thread``, ...)."""
+    trace's host clock (``name``, ``start``, ``end``, ``thread``, ...): those
+    that the trace record carries from the rank that recorded them
+    (``carry``), else this process's."""
     t = rec.get("trace")
+    if t and "spans" in t:
+        return t["spans"]
     read = getattr(_profiling(), "aligned", None)
     if not t or read is None:
         return None
     return read(t["host"])
 
 
-def counter(name: str):
+def counter(name: str, rec: Optional[dict] = None):
+    """The program's counter ``name``: the one that ``rec``'s trace record
+    carries from its rank (``carry``), else this process's."""
+    t = (rec or {}).get("trace") or {}
+    if "counters" in t:
+        return t["counters"].get(name)
     read = getattr(_profiling(), "counters", None)
     return None if read is None else read().get(name)
+
+
+def carry(rec: dict) -> None:
+    """Put this process's spans of ``rec``'s traced dispatches and its
+    counters into the trace record, for a reader in another process (a
+    rank's, read where ``ranks.run`` returns)."""
+    read = getattr(_profiling(), "counters", None)
+    rec["trace"].update(spans=aligned(rec), counters=read() if read else {})
 
 
 def window_us(rec: dict) -> Tuple[float, float]:

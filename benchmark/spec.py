@@ -3,16 +3,23 @@
 A cell (an entry of ``workloads``) names a configuration, whose file
 ``BENCHMARK.json`` gives, and a traffic mix, ``traffic/<mix>.json``; its
 correctness limits are ``limits/<cell>.json``; each per-layer metric is read
-by ``metrics/<metric>.py``'s ``read(records)``. Adding a configuration, a mix,
-a cell or a metric is adding files and entries: nothing here changes.
+by ``metrics/<metric>.py``'s ``read(records)``. A configuration names its
+family (``"family"``): ``families/<family>/`` holds the program it runs
+(``program.py``), its plain reference (``reference.py``), its FLOPs
+(``flops.py``) and its kernels' shapes and bytes (``kernels.py``). Adding a
+configuration, a family, a mix, a cell or a metric is adding files and
+entries: nothing here changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import importlib.util
 import json
 import os
+import sys
+import types
 from typing import Callable, Dict, List
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -67,3 +74,19 @@ def reader(metric: str, root: str = ROOT) -> Callable[[Dict], object]:
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def family(name: str, part: str):
+    """``families/<name>/<part>.py`` of this checkout (a configuration's
+    ``"family"``), loaded by path once a process. The family's directory is a
+    package of its own, so its files import each other relatively
+    (``from . import reference``)."""
+    directory = os.path.join(ROOT, "benchmark", "families", name)
+    if not os.path.isfile(os.path.join(directory, f"{part}.py")):
+        raise FileNotFoundError(f"family {name!r} has no {part}.py in {directory}")
+    package = f"benchmark_family_{name}"
+    if package not in sys.modules:
+        module = types.ModuleType(package)
+        module.__path__ = [directory]
+        sys.modules[package] = module
+    return importlib.import_module(f"{package}.{part}")

@@ -17,8 +17,16 @@ from benchmark import spec
 JAX_SIDE = {"jax", "jaxlib", "flax", "sc_sfmlearner_release_tpu"}
 PORT = "sc_sfmlearner_release_tpu_torch"
 HERE = os.path.join(spec.ROOT, "benchmark")
-REFERENCE = ("reference", "follow", "weights", "dataset", "check", "flops", "yardstick")
-FILES = sorted(glob.glob(os.path.join(HERE, "*.py")) + glob.glob(os.path.join(HERE, "metrics", "*.py")))
+# The reference's side: the shared files it runs and each family's
+# reference, FLOP count and kernel bytes. Their imports from the benchmark
+# stay among these modules.
+SHARED_REFERENCE = ("follow", "weights", "dataset", "check", "flops", "yardstick", "spec")
+FAMILY_REFERENCE = ("reference", "flops", "kernels")
+REFERENCE_FILES = [os.path.join(HERE, f"{m}.py") for m in SHARED_REFERENCE] + sorted(
+    os.path.join(d, f"{m}.py") for d in glob.glob(os.path.join(HERE, "families", "*"))
+    for m in FAMILY_REFERENCE)
+FILES = sorted(glob.glob(os.path.join(HERE, "*.py")) + glob.glob(os.path.join(HERE, "metrics", "*.py"))
+               + glob.glob(os.path.join(HERE, "families", "*", "*.py")))
 
 
 def _imports(path):
@@ -35,6 +43,8 @@ def _imports(path):
                 names.add(node.module.split(".")[0])
                 if node.module == "benchmark":
                     local |= {a.name for a in node.names}
+                elif node.module.startswith("benchmark."):
+                    local.add(node.module.split(".")[1])
     return names, local
 
 
@@ -44,11 +54,12 @@ def test_no_file_imports_jax(path):
     assert not names & JAX_SIDE
 
 
-@pytest.mark.parametrize("module", REFERENCE)
-def test_reference_imports_nothing_of_the_port(module):
-    names, local = _imports(os.path.join(HERE, f"{module}.py"))
+@pytest.mark.parametrize("path", REFERENCE_FILES, ids=lambda p: os.path.relpath(p, HERE))
+def test_reference_imports_nothing_of_the_port(path):
+    names, local = _imports(path)
+    allowed = set(SHARED_REFERENCE) | set(FAMILY_REFERENCE)
     assert PORT not in names and not names & JAX_SIDE
-    assert local <= set(REFERENCE), local - set(REFERENCE)
+    assert local <= allowed, local - allowed
 
 
 def _loaded(code):

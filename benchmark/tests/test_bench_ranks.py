@@ -33,3 +33,13 @@ def test_the_exchange_left_out(tmp_path):
                                        torch.device("cpu"), precision=cell.limits["reference"])
     ok, checked = check.judge(check.numbers(got["first"], ref), cell.limits["limits"])
     assert not ok, checked
+
+
+def test_rank_zeros_spans_reach_the_readers(tmp_path):
+    """A traced run on four ranks: rank 0's spans, recorded in its own
+    process, are read where the ranks' results return."""
+    out = run.measure(_cell(tmp_path), SEED, 0.3, True, torch.device("cpu"))
+    assert out["correct"] is True, out["checked"]
+    assert out["metrics"]["data.queue_wait_ms"]["value"] > 0
+    assert out["metrics"]["data.sample_ms"]["value"] > 0
+    assert out["device"]["busy_s"] >= 0

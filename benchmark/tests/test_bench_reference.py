@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import dataset, follow, reference
+from benchmark import dataset, follow, spec
 from benchmark.tests import tiny
 from benchmark.weights import init_weights
 
@@ -18,6 +18,7 @@ from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet  # noqa: E40
 from sc_sfmlearner_release_tpu_torch.training import LossConfig  # noqa: E402
 from sc_sfmlearner_release_tpu_torch.training.step import total_loss  # noqa: E402
 
+reference = spec.family("sc_depth", "reference")
 CFG = {"num_scales": 1, "with_ssim": True, "with_mask": True, "with_auto_mask": False,
        "photo_loss_weight": 1.0, "smooth_loss_weight": 0.1, "geometry_consistency_weight": 0.5}
 

@@ -94,3 +94,17 @@ def test_a_program_without_the_recorder_reads_nothing(monkeypatch):
     for metric in EXPECTED:
         if metric != "device.idle_host_pct":
             assert spec.reader(metric)(_rec()) is None, metric
+
+
+def test_spans_and_counters_carried_from_another_process(monkeypatch):
+    """A rank's spans and counters, put into its trace record where they
+    were recorded (``spans.carry``), are what the readers read in the
+    process that reports, whose own recorder holds nothing."""
+    monkeypatch.setattr(profiling.RECORDER, "spans", _store())
+    monkeypatch.setattr(profiling.RECORDER, "counters", dict(COUNTERS))
+    rec = _rec()
+    spans.carry(rec)
+    monkeypatch.setattr(profiling.RECORDER, "spans", [])
+    monkeypatch.setattr(profiling.RECORDER, "counters", {})
+    for metric, value in EXPECTED.items():
+        assert spec.reader(metric)(rec) == pytest.approx(value), metric

@@ -1,14 +1,18 @@
 """The frozen yardsticks: FLOPs recounted, bytes at the canonical shapes,
-peaks, kernel groups and the interval arithmetic."""
+peaks, kernel groups and the interval arithmetic; the ``sc_depth``
+family's FLOPs and kernel bytes at every cell's shapes."""
 
 import json
 import os
 
 import pytest
 
-from benchmark import flops, spec, yardstick
+from benchmark import flops, run, spec, yardstick
 
 CONFIGS = sorted(os.listdir(os.path.join(spec.ROOT, "benchmark", "configs")))
+SC_DEPTH_FLOPS = spec.family("sc_depth", "flops")
+SC_DEPTH_KERNELS = spec.family("sc_depth", "kernels")
+BENCH = spec.load_benchmark()
 
 
 @pytest.mark.parametrize("name", CONFIGS)
@@ -23,13 +27,15 @@ def test_flops_match_the_published_counts():
     `tools/mfu_report.py` counts them."""
     base = {"pose_layers": 18, "batch_size": 4, "sequence_length": 3, "height": 256,
             "width": 832}
-    assert round(flops.flops_per_step(dict(base, resnet_layers=18)) / 1e12, 4) == 1.8137
-    assert round(flops.flops_per_step(dict(base, resnet_layers=50)) / 1e12, 4) == 2.8796
+    count = SC_DEPTH_FLOPS.flops_per_step
+    assert round(count(dict(base, resnet_layers=18)) / 1e12, 4) == 1.8137
+    assert round(count(dict(base, resnet_layers=50)) / 1e12, 4) == 2.8796
 
 
 def test_kernel_bytes_at_the_canonical_shapes():
     """136/177/123/164 MB for B4 N2 832x256 (16 pairs), PERF.md's bounds."""
-    mb = {k: round(fn(16, 256, 832) / 1e6) for k, fn in yardstick.KERNEL_BYTES.items()}
+    shapes = {"pairs": 16, "height": 256, "width": 832}
+    mb = {k: round(fn(shapes) / 1e6) for k, fn in SC_DEPTH_KERNELS.KERNEL_BYTES.items()}
     assert mb == {"warp_sample": 136, "warp_sample_bwd": 177, "ssim": 123, "ssim_bwd": 164}
     assert yardstick.PEAK_HBM_BYTES_PER_S == 3.35e12
     assert yardstick.PEAK_BF16_FLOPS == 989.4e12
@@ -60,7 +66,37 @@ def test_intervals():
 def test_roofline_reads_nothing_without_its_kernel():
     rec = {"trace": {"kernels": [("void ssim_kernel<4>", 0.0, 50.0),
                                  ("void ssim_kernel<4>", 60.0, 100.0)], "steps": 3},
-           "shapes": {"pairs": 16, "height": 256, "width": 832}}
+           "kernel_bytes": {"ssim": 122683392, "warp_sample": 136314880}}
     assert yardstick.roofline_pct("warp_sample", rec) is None
     share = yardstick.roofline_pct("ssim", rec)  # per launch: 45 us each
     assert share == pytest.approx(100 * 122.683392e6 / 3.35e12 / 45e-6)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_sc_depth_flops_and_bytes_at_each_cells_shapes(workload):
+    """Every cell's FLOPs and kernel bytes, as the family counts them, are
+    the numbers the harness counted before families (B4 N2 832x256 a card:
+    16 pairs)."""
+    cell = spec.resolve(BENCH, workload)
+    frozen = {"sc_depth_r18_kitti": 1813696741376.0, "sc_depth_r50_kitti": 2879570051072.0}
+    assert flops.flops_per_step(cell.config) == frozen[cell.config["name"]]
+    rec = run.records(cell, {"window": None, "trace": None})
+    assert rec["shapes"] == {"pairs": 16, "height": 256, "width": 832,
+                             "global_batch": 4 * cell.traffic["world_size"]}
+    assert rec["kernel_bytes"] == {"warp_sample": 136314880, "warp_sample_bwd": 177209344,
+                                   "ssim": 122683392, "ssim_bwd": 163577856}
+    assert rec["groups"] == ()
+
+
+def test_a_familys_groups_take_only_what_the_shared_leave():
+    """A family's group names its own kernels and never takes one from a
+    shared group, so the shared per-layer metrics keep their meaning."""
+    groups = (("toy", ("toy_kernel",)), ("conv_toy", ("conv",)))
+    assert yardstick.group_of("void toy_kernel<4>", groups) == "toy"
+    assert yardstick.group_of("void toy_kernel<4>") == "other"
+    assert yardstick.group_of("ncclDevKernel_AllReduce", groups) == "nccl"
+    assert yardstick.group_of("sm90_xmma_fprop_conv", groups) == "conv/gemm"
+    assert yardstick.group_of("void toy_conv_kernel<4>", groups) == "conv/gemm"
+    rec = {"trace": {"kernels": [("void toy_kernel<4>", 0.0, 10.0)], "steps": 1},
+           "kernel_bytes": {"toy": 33500}, "groups": groups}
+    assert yardstick.roofline_pct("toy", rec) == pytest.approx(100.0 * 33500 / 3.35e12 / 10e-6)

@@ -13,19 +13,13 @@ from . import yardstick
 WAIT, DISPATCH = "bench.data_wait", "bench.dispatch"
 
 
-def profile(step, feed, dispatches: int, steps_per_dispatch: int, device,
-            enabled: bool = True) -> Dict:
+def profile(step, feed, dispatches: int, steps_per_dispatch: int, device) -> Dict:
     """Run ``dispatches`` more dispatches under the profiler. Returns the
     device's records ``kernels`` ``[(name, start_us, end_us)]``, the host's
     ``host`` records (the harness's two labels and every CPU op), the
-    optimizer ``steps`` they ran and the host's ``wall_s`` from the first
-    batch's fetch to the card's end of the last dispatch. Not ``enabled``,
-    the same dispatches run unprofiled and nothing is returned (another
-    rank of a process group)."""
-    if not enabled:
-        for _ in range(dispatches):
-            step(next(feed))
-        return None
+    optimizer ``steps`` they ran, the host's ``wall_s`` from the first
+    batch's fetch to the card's end of the last dispatch, and ``busy_s``,
+    the seconds in which a kernel ran on the card."""
     from torch.profiler import ProfilerActivity, profile as torch_profile, record_function
 
     activities = [ProfilerActivity.CPU]
@@ -52,7 +46,7 @@ def profile(step, feed, dispatches: int, steps_per_dispatch: int, device,
         else:
             host.append(span)
     return {"kernels": kernels, "host": host, "steps": dispatches * steps_per_dispatch,
-            "wall_s": wall}
+            "wall_s": wall, "busy_s": busy_and_span_us(kernels)[0] * 1e-6}
 
 
 def busy_and_span_us(kernels) -> Tuple[float, float]:
@@ -74,11 +68,12 @@ def _gap_name(gap, host) -> str:
     return f"{outer} > {min(inner)[1]}" if inner else outer
 
 
-def breakdown(records: Dict, top: int = 10) -> Dict:
-    """The device's top kernel groups and its longest idle gaps, seconds
-    over the traced dispatches."""
+def breakdown(records: Dict, groups=(), top: int = 10) -> Dict:
+    """The device's top kernel groups (a family's own ``groups`` for what
+    the shared groups leave) and its longest idle gaps, seconds over the
+    traced dispatches."""
     kernels = records["kernels"]
-    groups = yardstick.group_us(kernels, 1)
+    groups = yardstick.group_us(kernels, 1, groups)
     holes = sorted(yardstick.gaps((s, e) for _, s, e in kernels), key=lambda g: g[0] - g[1])
     return {"device_ops": [[g, us * 1e-6] for g, us in list(groups.items())[:top]],
             "idle_gaps": [[_gap_name(g, records["host"]), (g[1] - g[0]) * 1e-6]

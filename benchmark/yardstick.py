@@ -1,7 +1,8 @@
-"""Frozen yardsticks: the card's peaks, the kernels' bytes as functions of
-their shapes, the kernel-name groups of a device trace, and interval
-arithmetic. Imports nothing of the port, so no later change to the program
-can move them.
+"""Frozen yardsticks: the card's peaks, the kernel-name groups of a device
+trace, interval arithmetic, and a kernel's share of its bandwidth bound
+(the bytes of its launches come from the family: ``families/<family>/
+kernels.py``). Imports nothing of the port, so no later change to the
+program can move them.
 """
 
 from __future__ import annotations
@@ -12,11 +13,13 @@ from typing import Dict, Iterable, Tuple
 # HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989.4e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
-F32 = 4
 
 # First match wins: the backward kernels before the forwards, cuDNN's
 # BatchNorm and layout kernels before its convolutions (the port's
-# tools/profile_step.py groups, frozen here), NCCL before everything.
+# tools/profile_step.py groups, frozen here), NCCL before everything. A
+# family's own groups (``kernels.GROUPS``) take only what none of these
+# holds, so the shared per-layer metrics count the same kernels in every
+# cell.
 KERNEL_GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     ("nccl", ("nccl",)),
     ("warp_sample_bwd", ("warp_sample_bwd",)),
@@ -36,9 +39,13 @@ KERNEL_GROUPS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 NETWORK_GROUPS = ("conv/gemm", "batch_norm", "layout")
 
 
-def group_of(kernel: str) -> str:
+def group_of(kernel: str, groups=()) -> str:
+    """The group of a kernel's name: the first of ``KERNEL_GROUPS`` and
+    then of ``groups`` (a family's own, ``kernels.GROUPS``) whose patterns
+    it holds."""
     key = kernel.lower()
-    return next((g for g, pats in KERNEL_GROUPS if any(p in key for p in pats)), "other")
+    return next((g for g, pats in KERNEL_GROUPS + tuple(groups)
+                 if any(p in key for p in pats)), "other")
 
 
 def union_us(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -61,57 +68,28 @@ def gaps(intervals: Iterable[Tuple[float, float]]):
     return out
 
 
-def group_us(kernels, steps: int) -> Dict[str, float]:
+def group_us(kernels, steps: int, groups=()) -> Dict[str, float]:
     """Device us per step by group from ``(name, start_us, end_us)`` records."""
     out: Dict[str, float] = {}
     for name, start, end in kernels:
-        g = group_of(name)
+        g = group_of(name, groups)
         out[g] = out.get(g, 0.0) + (end - start) / steps
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
-
-
-# Bytes of one launch of each kernel of the port at one scale: each input
-# read once and each output written once, float32. F = 2 N B directed pairs
-# of H x W pixels; the warp samples a 4-channel source (depth and RGB) and
-# its backward returns the coordinates' gradient and the depth channel's.
-def warp_sample_bytes(f: int, h: int, w: int, c: int = 4) -> int:
-    src, coords, out = f * h * w * c, f * h * w * 2, f * h * w * c
-    return F32 * (src + coords + out)
-
-
-def warp_sample_bwd_bytes(f: int, h: int, w: int, c: int = 4, grad_channels: int = 1) -> int:
-    src, coords, dout = f * h * w * c, f * h * w * 2, f * h * w * c
-    dcoords, dsrc = f * h * w * 2, f * h * w * grad_channels
-    return F32 * (src + coords + dout + dcoords + dsrc)
-
-
-def ssim_bytes(f: int, h: int, w: int, c: int = 3) -> int:
-    return F32 * 3 * f * c * h * w  # x, y read; the map written
-
-
-def ssim_bwd_bytes(f: int, h: int, w: int, c: int = 3) -> int:
-    return F32 * 4 * f * c * h * w  # x, y, the map's gradient read; d/dy written
-
-
-KERNEL_BYTES = {
-    "warp_sample": warp_sample_bytes,
-    "warp_sample_bwd": warp_sample_bwd_bytes,
-    "ssim": ssim_bytes,
-    "ssim_bwd": ssim_bwd_bytes,
-}
 
 
 def roofline_pct(kernel: str, rec: dict):
     """The share of ``kernel``'s bandwidth bound in its traced device time
     per launch (every launch of a step and scale has the cell's shapes),
-    %; None where the trace holds none of it. Per launch, so a record the
-    profiler dropped cannot raise the share."""
+    %; None where the trace holds none of it. The bytes of one launch are
+    ``rec["kernel_bytes"][kernel]`` (the family's, at the cell's shapes).
+    Per launch, so a record the profiler dropped cannot raise the share."""
     trace = rec.get("trace")
     if not trace:
         return None
-    spans = [end - start for name, start, end in trace["kernels"] if group_of(name) == kernel]
+    groups = rec.get("groups", ())
+    spans = [end - start for name, start, end in trace["kernels"]
+             if group_of(name, groups) == kernel]
     if not spans or sum(spans) <= 0:
         return None
-    s = rec["shapes"]
-    bound_s = KERNEL_BYTES[kernel](s["pairs"], s["height"], s["width"]) / PEAK_HBM_BYTES_PER_S
+    bound_s = rec["kernel_bytes"][kernel] / PEAK_HBM_BYTES_PER_S
     return 100.0 * bound_s / (sum(spans) * 1e-6 / len(spans))
