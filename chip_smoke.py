@@ -441,7 +441,7 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    names = ("warp_sample", "ssim", "ssim_bwd")
+    names = ("warp_sample", "ssim", "ssim_bwd", "cost_volume")
     secs = _build.build(names, verbose=True, force=True)
     log(f"[build] {' + '.join(n + '.cu' for n in names)} for sm_90a in {secs:.1f} s "
         "(parallel nvcc)")
@@ -458,6 +458,92 @@ def build_phase() -> None:
         except FileNotFoundError:
             linked = ["ldd not found: not measured"]
         log(f"[build] {name}: libcudart needed {linked or ['none (linked statically)']}")
+
+
+# ManyDepth's cost volume at the cell's shapes: B12, 64 channels at 48x160
+# (640x192 / 4), 96 bins between the trackers' start.
+COST_VOLUME_SHAPE = (12, 64, 48, 160)
+COST_VOLUME_BINS = (0.1, 10.0, 96)
+# max|err| / max|plain| of the volume where both are confident, and the share
+# of pixels whose lowest-cost bin or confidence may differ: the plain loop's
+# coordinates come from cuBLAS and grid_sample with fused multiply-adds, the
+# kernel's without, an ulp apart (3.5e-5 and 2.1e-3 read on an H100 at
+# these inputs, whose shifted features leave many near ties between bins).
+COST_VOLUME_TOL = 2e-4
+COST_VOLUME_FLIPS = 1e-2
+
+
+def cost_volume_inputs(rng: np.random.RandomState) -> dict:
+    """Current features, lookup features (the current ones shifted by 3
+    columns, plus noise), quarter-resolution KITTI intrinsics and poses:
+    sample 0 with the zero pose (an empty volume), sample 1 with the
+    identity (a static camera), the rest moving forward and turning a
+    little."""
+    b, c, h, w = COST_VOLUME_SHAPE
+    cur = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(np.float32))
+    cur = torch.nn.functional.avg_pool2d(cur, 3, 1, 1)
+    lookup = torch.roll(cur, 3, dims=3) + 0.05 * torch.from_numpy(
+        rng.standard_normal((b, c, h, w)).astype(np.float32))
+    k = torch.tensor([[0.58 * w, 0.0, 0.5 * w], [0.0, 1.92 * h, 0.5 * h], [0.0, 0.0, 1.0]])
+    k = k.expand(b, 3, 3).clone()
+    poses = torch.eye(4).repeat(b, 1, 1)
+    angles = rng.uniform(-0.02, 0.02, (b,))
+    for i in range(2, b):
+        ca, sa = np.cos(angles[i]), np.sin(angles[i])
+        poses[i, :3, :3] = torch.tensor([[ca, 0, sa], [0, 1, 0], [-sa, 0, ca]],
+                                        dtype=torch.float32)
+        poses[i, :3, 3] = torch.tensor([rng.uniform(-0.05, 0.05), 0.0,
+                                        rng.uniform(-0.6, -0.2)], dtype=torch.float32)
+    poses[0] = 0.0
+    dev = torch.device("cuda")
+    lo, hi, n = COST_VOLUME_BINS
+    return {"cur": cur.to(dev), "lookup": lookup.to(dev),
+            "proj": (k @ poses[:, :3]).contiguous().to(dev),
+            "inv_k": torch.linalg.inv(k).contiguous().to(dev),
+            "bins": torch.linspace(lo, hi, n).to(dev)}
+
+
+def cost_volume_phase(rng: np.random.RandomState) -> dict:
+    """The cost-volume kernel against its plain version (the public code's
+    per-sample ``F.grid_sample`` loop, on the card) at the cell's shapes:
+    the volume where both are confident, and the pixels whose confidence
+    or lowest-cost bin differ (near ties of the channel sum's order); the
+    kernel's device time, its share of its bytes bound and the plain
+    loop's time."""
+    from sc_sfmlearner_release_tpu_torch.ops.cost_volume import cost_volume, cost_volume_plain
+
+    x = cost_volume_inputs(rng)
+    args = (x["cur"], x["lookup"], x["proj"], x["inv_k"], x["bins"])
+    got = cost_volume(*args)
+    with torch.no_grad():
+        want = cost_volume_plain(*args)
+    both = (got[2] * want[2]).bool()
+    conf_flips = (got[2] != want[2]).float().mean().item()
+    arg_flips = (got[1] != want[1]).float().mean().item()
+    scale = want[0].abs().max().item()
+    err = ((got[0] - want[0]).abs() * both[:, None]).max().item() / max(scale, 1e-30)
+    empty = got[2][0].sum().item()
+    log(f"  cost_volume: volume max|err|/max|plain| {err:.3e} (tol {COST_VOLUME_TOL:.0e}); "
+        f"confidence flips {conf_flips:.2e}, lowest-cost flips {arg_flips:.2e} (tol "
+        f"{COST_VOLUME_FLIPS:.0e}); confident {want[2].mean().item():.4f}; sample 0 (zero pose) "
+        f"confident pixels {empty:.0f}")
+    if not (err <= COST_VOLUME_TOL and conf_flips <= COST_VOLUME_FLIPS
+            and arg_flips <= COST_VOLUME_FLIPS and empty == 0):
+        raise AssertionError("cost_volume disagrees with its plain version")
+    b, c, h, w = COST_VOLUME_SHAPE
+    d = COST_VOLUME_BINS[2]
+    n_bytes = 4 * b * h * w * (2 * c + d + 2)
+    kernel_ms, how = device_ms(lambda: cost_volume(*args), "cost_volume_kernel")
+    wrapper_ms = cuda_ms(lambda: cost_volume(*args), KERNEL_ITERS)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: cost_volume_plain(*args), 3, warmup=1)
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  cost_volume: {kernel_ms:.4f} ms on the device ({how}), {wrapper_ms:.4f} ms a "
+        f"wrapper call, bound {bound_ms:.4f} ms ({100 * bound_ms / kernel_ms:.2f}% of it); "
+        f"the public per-sample loop {plain_ms:.3f} ms")
+    return {"name": "cost_volume", "ms": wrapper_ms, "device_ms": kernel_ms,
+            "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms, "plain_ms": plain_ms,
+            "max_rel_err": err, "confidence_flips": conf_flips, "lowest_cost_flips": arg_flips}
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -3579,6 +3665,8 @@ def main(argv=None) -> int:
     p.add_argument("--cpu-check-seeds", type=int, default=0,
                    help="also repeat the fp32 train step's card-against-CPU check from this "
                         "many more seeds, and report its worst errors and gate crossings")
+    p.add_argument("--cost-volume-only", action="store_true",
+                   help="stop after the kernels' phase and the cost volume's")
     if argv is None:
         argv = sys.argv[1:]
     if argv[:1] == ["--count-launches"]:
@@ -3597,6 +3685,11 @@ def main(argv=None) -> int:
     kernels = [warp_phase(inputs), warp_bwd_phase(inputs, rng), ssim_phase(rng),
                ssim_bwd_phase(rng)]
     del inputs
+    log("[cost_volume] ManyDepth's cost volume against the public per-sample loop")
+    cost_volume_kernel = cost_volume_phase(rng)
+    if args.cost_volume_only:
+        print(json.dumps({"kernels": [cost_volume_kernel]}), flush=True)
+        return 0
     by_path = slice_phase(args.seed, rng, args.profile)
     by_path["train_step"], step_device_ms = train_phase(args.seed, rng, args.profile)
     log("[augment] the device augmentation on the card against the CPU")
@@ -3656,7 +3749,7 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if failures:
         raise AssertionError(f"graph checks failed: {failures}")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + [cost_volume_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -35,6 +35,9 @@ batch and applies its own rows of the draws, so N processes augment as one
 process on the global batch does. Under width sharding the batch holds the
 data group's rows at full width, augmented whole; the train step then cuts
 each process's columns (``distributed.local_frames``).
+
+``resize_nchw`` resizes an augmented batch on the card (ManyDepth trains at
+640x192 from the 832x256 prepared frames) and hands it on NCHW.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..parallel import distributed
 from .transforms import IMAGENET_MEAN, IMAGENET_STD
@@ -236,6 +240,10 @@ class DeviceAugment:
         draws = local_draws(generator, batch["tgt"].shape[0], self.cfg)
         return augment_with_draws(batch, draws, self.cfg)
 
+    def map_width(self, h: int, w: int) -> int:
+        """The columns of :meth:`host_map`'s map for ``h`` x ``w`` frames."""
+        return w + h + 5
+
     def host_map(self, generator: torch.Generator, batch_size: int, h: int,
                  w: int) -> torch.Tensor:
         """The draws of ``generator`` resolved into the packed affine map,
@@ -252,6 +260,27 @@ class DeviceAugment:
 def make_device_augment(cfg: AugmentConfig) -> DeviceAugment:
     """The device augmentation of ``cfg`` (:class:`DeviceAugment`)."""
     return DeviceAugment(cfg)
+
+
+def resize_nchw(batch: Batch, height: int, width: int) -> Batch:
+    """An augmented batch (``tgt [B, H, W, 3]``, ``refs [B, N, H, W, 3]``,
+    ``intrinsics [B, 3, 3]``) resized on its device to ``height`` x
+    ``width`` by bilinear (``F.interpolate``, ``align_corners=False``, no
+    antialias) and returned NCHW (``tgt [B, 3, h, w]``, ``refs [B, N, 3, h,
+    w]``), the intrinsics' rows scaled by ``width / W`` and ``height / H``
+    (Monodepth2 scales its normalized intrinsics by the frame's size). Other
+    entries pass through."""
+    tgt, refs = batch["tgt"], batch["refs"]
+    b, n, h0, w0, _ = refs.shape
+    frames = torch.cat([tgt[:, None], refs], 1).flatten(0, 1).permute(0, 3, 1, 2)
+    frames = F.interpolate(frames, size=(height, width), mode="bilinear", align_corners=False)
+    frames = frames.view(b, 1 + n, 3, height, width)
+    k = batch["intrinsics"]
+    out = dict(batch)
+    out["tgt"], out["refs"] = frames[:, 0], frames[:, 1:]
+    out["intrinsics"] = torch.stack([k[:, 0] * (width / w0), k[:, 1] * (height / h0), k[:, 2]],
+                                    1)
+    return out
 
 
 def normalize_batch(batch: Batch, mean: Tuple[float, float, float] = IMAGENET_MEAN,

@@ -53,10 +53,15 @@ class ConvBlock(nn.Module):
 
 class DepthDecoder(nn.Module):
     """Skip-connected decoder. ``self.decoder`` is ordered as the
-    reference's: ``[upconv_4_0, upconv_4_1, ..., upconv_0_1, dispconv_0..3]``."""
+    reference's: ``[upconv_4_0, upconv_4_1, ..., upconv_0_1, dispconv_0..3]``.
+    ``head``: ``"sc_depth"`` gives SC-Depth's ``10 * sigmoid(x) + 0.01``,
+    ``"sigmoid"`` Monodepth2's plain ``sigmoid(x)`` (ManyDepth's decoders)."""
 
-    def __init__(self, num_ch_enc: Sequence[int]):
+    def __init__(self, num_ch_enc: Sequence[int], head: str = "sc_depth"):
         super().__init__()
+        if head not in ("sc_depth", "sigmoid"):
+            raise ValueError(f"unknown head {head!r}")
+        self.head = head
         mods = []
         for i in range(4, -1, -1):
             cin = num_ch_enc[-1] if i == 4 else DEC_CHANNELS[i + 1]
@@ -76,8 +81,8 @@ class DepthDecoder(nn.Module):
                 x = torch.cat([x, feats[i - 1]], dim=1)
             x = self.decoder[2 * k + 1](x)
             if i in SCALES:
-                disp = self.decoder[10 + i](x)
-                outputs[i] = ALPHA * torch.sigmoid(disp.float()) + BETA
+                disp = torch.sigmoid(self.decoder[10 + i](x).float())
+                outputs[i] = disp if self.head == "sigmoid" else ALPHA * disp + BETA
         return tuple(outputs[s] for s in SCALES)
 
 

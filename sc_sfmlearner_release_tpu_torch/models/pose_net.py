@@ -22,13 +22,18 @@ from .resnet import ResNetEncoder, default_generator, encoder_channels, torch_de
 
 
 class PoseDecoder(nn.Module):
-    def __init__(self, cin: int):
+    """``frames``: Monodepth2's ``num_frames_to_predict_for``: the last conv
+    gives ``6 * frames`` channels, of which the output keeps the first 6
+    (ManyDepth builds it with 2 and reads frame 0's)."""
+
+    def __init__(self, cin: int, frames: int = 1):
         super().__init__()
+        self.frames = frames
         self.net = nn.ModuleList([
             nn.Conv2d(cin, 256, 1),           # squeeze
             nn.Conv2d(256, 256, 3, 1, 1),     # pose_0
             nn.Conv2d(256, 256, 3, 1, 1),     # pose_1
-            nn.Conv2d(256, 6, 1),             # pose_2
+            nn.Conv2d(256, 6 * frames, 1),    # pose_2
         ])
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
@@ -36,17 +41,19 @@ class PoseDecoder(nn.Module):
         x = F.relu(spatial.conv2d(x, self.net[1]))
         x = F.relu(spatial.conv2d(x, self.net[2]))
         x = self.net[3](x)
-        return 0.01 * spatial.mean_hw(x.float(), 2, 3).reshape(-1, 6)
+        out = 0.01 * spatial.mean_hw(x.float(), 2, 3)
+        return out.reshape(-1, 6) if self.frames == 1 else out.reshape(-1, self.frames, 6)[:, 0]
 
 
 class PoseNet(nn.Module):
     """Relative pose of ``img2`` from ``img1``, both ``[B, H, W, 3]``."""
 
-    def __init__(self, num_layers: int = 18, generator: Optional[torch.Generator] = None):
+    def __init__(self, num_layers: int = 18, generator: Optional[torch.Generator] = None,
+                 frames: int = 1):
         super().__init__()
         g = default_generator(generator)
         self.encoder = ResNetEncoder(num_layers, 2, generator=g)
-        self.decoder = PoseDecoder(encoder_channels(num_layers)[-1])
+        self.decoder = PoseDecoder(encoder_channels(num_layers)[-1], frames)
         for m in self.decoder.modules():
             if isinstance(m, nn.Conv2d):
                 torch_default_conv_init_(m, g)

@@ -222,3 +222,36 @@ def inverse_warp2(
     projected_img = sampled[..., 1:].to(img.dtype)
     valid = (coords.abs().amax(dim=-1) <= 1.0).to(img.dtype)
     return projected_img, valid[..., None], projected_depth, computed_depth
+
+
+def rot_from_axisangle(vec: torch.Tensor) -> torch.Tensor:
+    """Axis-angle ``[B, 3]`` -> homogeneous rotation ``[B, 4, 4]``
+    (Monodepth2's ``rot_from_axisangle``, its arithmetic in its order)."""
+    angle = torch.norm(vec, 2, -1, True)
+    axis = vec / (angle + 1e-7)
+    ca, sa = torch.cos(angle)[:, 0], torch.sin(angle)[:, 0]
+    c = 1 - ca
+    x, y, z = axis[:, 0], axis[:, 1], axis[:, 2]
+    xs, ys, zs = x * sa, y * sa, z * sa
+    x_c, y_c, z_c = x * c, y * c, z * c
+    xy_c, yz_c, zx_c = x * y_c, y * z_c, z * x_c
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    rows = [x * x_c + ca, xy_c - zs, zx_c + ys, zero,
+            xy_c + zs, y * y_c + ca, yz_c - xs, zero,
+            zx_c - ys, yz_c + xs, z * z_c + ca, zero,
+            zero, zero, zero, one]
+    return torch.stack(rows, 1).view(-1, 4, 4)
+
+
+def transformation_from_parameters(axisangle: torch.Tensor, translation: torch.Tensor,
+                                   invert: bool = False) -> torch.Tensor:
+    """Monodepth2's ``transformation_from_parameters``: ``[B, 4, 4]`` from
+    an axis-angle ``[B, 3]`` and a translation ``[B, 3]``; ``T @ R``, or
+    with ``invert`` ``R^T @ T(-t)``."""
+    rot = rot_from_axisangle(axisangle)
+    t = -translation if invert else translation
+    eye = torch.eye(3, dtype=t.dtype, device=t.device).expand(t.shape[0], 3, 3)
+    trans = pose_mat4(torch.cat([eye, t[:, :, None]], 2))
+    if invert:
+        return rot.transpose(1, 2) @ trans
+    return trans @ rot

@@ -24,6 +24,11 @@ means need nothing more, SSIM takes a halo (``ssim_nchw_sharded``), and
 the smoothness term takes its horizontal differences across the shards'
 edges, its depth mean over the whole image and its counts of the whole
 image.
+
+ManyDepth's terms (Monodepth2's, on NCHW images in [0, 1]) follow at the
+end: the reprojection loss, the auto-mask, the masked mean and the
+edge-aware smoothness; the train step (``training/manydepth.py``) takes
+their minimum over references and scales.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 from ..parallel import distributed, spatial
 from .geometry import inverse_warp2
-from .ssim import ssim_nchw_sharded
+from .ssim import ssim_nchw, ssim_nchw_sharded
 
 # The reference trusts a masked mean only when the valid region holds more
 # than 10000 elements (after the channel broadcast).
@@ -221,3 +226,44 @@ def smooth_loss(
     for i in range(ref_d.shape[1]):
         loss = loss + _smooth_one(ref_d[:, i], ref_imgs[:, i], sample_mask)
     return loss
+
+
+# ---- Monodepth2 / ManyDepth terms (NCHW) -------------------------------------
+
+def disp_to_depth(disp: torch.Tensor, min_depth: float, max_depth: float
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sigmoid disparity -> (scaled disparity, depth) between ``min_depth``
+    and ``max_depth`` (Monodepth2's ``disp_to_depth``)."""
+    min_disp, max_disp = 1 / max_depth, 1 / min_depth
+    scaled = min_disp + (max_disp - min_disp) * disp
+    return scaled, 1 / scaled
+
+
+def reprojection_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """``0.85 * SSIM + 0.15 * L1``, each the mean over channels:
+    ``[F, 3, H, W]`` -> ``[F, 1, H, W]``. The SSIM map is the port's kernel
+    with ``pred`` as the input that takes the gradient."""
+    l1 = (target - pred).abs().mean(1, True)
+    return 0.85 * ssim_nchw(target, pred).mean(1, True) + 0.15 * l1
+
+
+def automask(reprojection: torch.Tensor, identity: torch.Tensor) -> torch.Tensor:
+    """1 where the warped reprojection loss beats the identity loss (the
+    argmin of the two, ties to the reprojection), else 0."""
+    return (reprojection <= identity).float()
+
+
+def masked_mean(loss: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``sum(loss * mask) / (sum(mask) + 1e-7)``."""
+    return (loss * mask).sum() / (mask.sum() + 1e-7)
+
+
+def edge_aware_smoothness(disp: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """Monodepth2's ``get_smooth_loss`` of ``disp`` ``[B, 1, h, w]`` against
+    ``img`` ``[B, 3, h, w]``."""
+    grad_disp_x = (disp[:, :, :, :-1] - disp[:, :, :, 1:]).abs()
+    grad_disp_y = (disp[:, :, :-1, :] - disp[:, :, 1:, :]).abs()
+    grad_img_x = (img[:, :, :, :-1] - img[:, :, :, 1:]).abs().mean(1, True)
+    grad_img_y = (img[:, :, :-1, :] - img[:, :, 1:, :]).abs().mean(1, True)
+    return (grad_disp_x * torch.exp(-grad_img_x)).mean() + \
+        (grad_disp_y * torch.exp(-grad_img_y)).mean()

@@ -70,6 +70,16 @@ One divergence from the JAX trainer: with ``--packed`` and without
 ``val`` split, not from JPEGs. ``pack_dataset`` stores the decoded frames,
 so the batches are the same.
 
+``--arch manydepth`` trains ManyDepth (``training/manydepth.py``: the
+teacher, the cost-volume network and the pose network, four-scale minimum
+reprojection, adaptive depth bins) instead of SC-Depth, with ManyDepth's
+options (``--height/--width``, the frames resized on the device after
+``--device-augment``, ``--num-scales`` (4 unless given), ``--num-depth-bins``,
+``--min/max-depth-bin`` (their defaults alone), ``--disparity-smoothness``,
+``--freeze-teacher-epoch``); ``scripts/train_manydepth_kitti.sh`` carries
+the published values. It logs each step's metrics and saves
+``manydepth.pth.tar`` each epoch, without validation, on one process.
+
 Example (reference scripts/train_resnet18_depth_256.sh):
   python -m sc_sfmlearner_release_tpu_torch.train $DATA_ROOT --resnet-layers 18 \\
       -b4 -s0.1 -c0.5 --epoch-size 1000 --sequence-length 3 --with-auto-mask 1 \\
@@ -106,6 +116,8 @@ from .training.step import METRIC_KEYS
 from .utils import AverageMeter, enable_nan_debugging, make_logger, tensor2array, trace
 
 TIME_LOG = "progress_log_time.csv"
+# ManyDepth's --min/max-depth-bin defaults, the only values taken.
+DEPTH_BINS = (0.1, 20.0)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -132,7 +144,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--log-full", default="progress_log_full.csv")
     p.add_argument("--log-output", action="store_true")
     p.add_argument("--resnet-layers", type=int, default=18, choices=[18, 50])
-    p.add_argument("--num-scales", "--number-of-scales", type=int, default=1)
+    p.add_argument("--num-scales", "--number-of-scales", type=int, default=None,
+                   help="scales of the loss (default 1; 4 with --arch manydepth)")
     p.add_argument("-p", "--photo-loss-weight", type=float, default=1)
     p.add_argument("-s", "--smooth-loss-weight", type=float, default=0.1)
     p.add_argument("-c", "--geometry-consistency-weight", type=float, default=0.5)
@@ -217,6 +230,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the full resume state every N epochs (model "
                    "weights are written every epoch regardless); the full "
                    "state is ~3x the bytes")
+    md = p.add_argument_group("ManyDepth (--arch manydepth; manydepth/options.py's defaults)")
+    md.add_argument("--arch", choices=["sc_depth", "manydepth"], default="sc_depth",
+                    help="the train step: SC-Depth's, or ManyDepth's (teacher, cost-volume "
+                    "network and pose network; needs --device-augment)")
+    md.add_argument("--height", type=int, default=192,
+                    help="ManyDepth trains at this height: the augmented frames are resized "
+                    "on the device")
+    md.add_argument("--width", type=int, default=640)
+    md.add_argument("--min-depth", type=float, default=0.1)
+    md.add_argument("--max-depth", type=float, default=100.0)
+    md.add_argument("--num-depth-bins", type=int, default=96)
+    md.add_argument("--min-depth-bin", type=float, default=DEPTH_BINS[0],
+                    help="the public options' bins, which its trainer's adaptive trackers "
+                    "(from 0.1 and 10) replace from the first step: only the defaults are "
+                    "taken")
+    md.add_argument("--max-depth-bin", type=float, default=DEPTH_BINS[1])
+    md.add_argument("--disparity-smoothness", type=float, default=1e-3)
+    md.add_argument("--freeze-teacher-epoch", type=int, default=15,
+                    help="from this epoch on the teacher and the pose network are frozen: "
+                    "Adam over the multi-frame network alone, the trackers fixed")
     return p
 
 
@@ -354,6 +387,62 @@ def _grouped(batches, k: int):
             group = []
 
 
+class _Dispatcher:
+    """The train loop's dispatches of ``fused`` optimizer steps each, counted
+    from step ``start``: one of them traced into ``profile_dir`` (after the
+    warm-up and, with ``fused`` > 1, the capture), each's data wait and host
+    time (``t_data``, ``t_step``, this epoch's), and one sync for an epoch's
+    metrics."""
+
+    def __init__(self, device: torch.device, fused: int, profile_dir=None, start: int = 0):
+        self.device, self.fused, self.profile_dir, self.start = device, fused, profile_dir, start
+        self.n_iter = 0
+        self.profile_from = 2 * fused if fused > 1 else 1
+        self.t_data, self.t_step = AverageMeter(), AverageMeter()
+
+    def epoch(self, train_step, loader, epoch_size: int, keys, each=None):
+        """One epoch of ``train_step`` over ``loader``'s batches, at most
+        ``epoch_size`` steps; ``each(metrics, prev_iter, epoch_steps)`` after
+        each dispatch. Returns one row of ``keys`` per optimizer step, and
+        one ``[step, data_wait_s, step_s]`` row per optimizer step: each of a
+        dispatch's K rows holds its wait / K and its host time / K, the last
+        dispatch's with the wait for the epoch's metrics."""
+        self.t_data, self.t_step = AverageMeter(), AverageMeter()
+        pending, dispatches, steps = [], [], 0  # dispatches: [first step, wait, host time]
+        end = time.perf_counter()
+        for batch, _ in _grouped(device_prefetch(loader, self.device), self.fused):
+            if steps >= epoch_size:
+                break
+            waited = time.perf_counter() - end
+            self.t_data.update(waited)
+            profile = bool(self.profile_dir) and self.n_iter >= self.profile_from
+            # The trace spans exactly this dispatch, until the card has run it.
+            with trace(self.profile_dir if profile else None):
+                metrics = train_step(batch)
+                if profile:
+                    _synchronize(self.device)
+                    self.profile_dir = None
+            prev, self.n_iter = self.n_iter, self.n_iter + self.fused
+            steps += self.fused
+            pending.append(metrics)
+            if each is not None:
+                each(metrics, prev, steps)
+            now = time.perf_counter()
+            self.t_step.update(now - end)
+            dispatches.append([self.start + prev + 1, waited, now - end])
+            end = now
+        # metrics stay on the device; one sync for the whole epoch's. Fused
+        # metrics carry a leading [K] axis: one row per optimizer step either way.
+        rows = []
+        if pending:
+            rows = torch.cat([torch.stack([m[k].reshape(-1) for k in keys], 1)
+                              for m in pending]).double().cpu().tolist()
+            dispatches[-1][2] += time.perf_counter() - end  # the wait for those metrics
+        times = [[first + j, waited / self.fused, secs / self.fused]
+                 for first, waited, secs in dispatches for j in range(self.fused)]
+        return rows, times
+
+
 def _synchronize(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -390,8 +479,12 @@ def _check_layout(args, device: torch.device, train_set) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
+    if args.num_scales is None:
+        args.num_scales = 4 if args.arch == "manydepth" else 1
     device = cli_device(args.device)
     datasets = _datasets(args)
+    if args.arch == "manydepth":
+        return _train_manydepth(args, device, datasets[0])
     _check_layout(args, device, datasets[0])
     if not args.distributed:
         return _train(args, device, datasets)
@@ -518,10 +611,7 @@ def _train(args, device: torch.device, datasets) -> int:
     logger = make_logger(args.epochs, epoch_size, len(val_loader), style=args.log_style,
                          is_main=is_main)
     best_error = -1.0
-    n_iter = 0
-    # The one profiled dispatch comes after the warm-up, and the capture.
-    profile_from = 2 * fused if fused > 1 else 1
-    profile_done = False
+    dispatcher = _Dispatcher(device, fused, args.profile_dir if is_main else None, start_step)
 
     for epoch in range(args.epochs):
         logger.start_epoch(epoch)
@@ -529,28 +619,9 @@ def _train(args, device: torch.device, datasets) -> int:
 
         # ---- train -------------------------------------------------------
         losses = AverageMeter(precision=4)
-        # metrics stay on the device; one sync at the epoch's end
-        pending = []
-        dispatches = []  # [first optimizer step, data wait, host time]
-        t_data, t_step = AverageMeter(), AverageMeter()
-        end = time.perf_counter()
-        epoch_steps = 0
-        for batch, _ in _grouped(device_prefetch(train_loader, device), fused):
-            if epoch_steps >= epoch_size:
-                break
-            waited = time.perf_counter() - end
-            t_data.update(waited)
-            profile = (bool(args.profile_dir) and is_main and not profile_done
-                       and n_iter >= profile_from)
-            # The trace spans exactly this dispatch, until the card has run it.
-            with trace(args.profile_dir if profile else None):
-                metrics = train_step(batch)
-                if profile:
-                    _synchronize(device)
-            profile_done = profile_done or profile
-            prev_iter, n_iter = n_iter, n_iter + fused
-            epoch_steps += fused
-            pending.append(metrics)
+
+        def each(metrics, prev_iter, epoch_steps):
+            n_iter = prev_iter + fused
             if is_main and args.checkpoint_freq and (
                     n_iter // args.checkpoint_freq > prev_iter // args.checkpoint_freq):
                 save_checkpoint(save_path, state, is_best=False, epoch=epoch)
@@ -565,22 +636,12 @@ def _train(args, device: torch.device, datasets) -> int:
                                          n_iter)
                     tb_writer.add_scalar("total_loss", m["loss"], n_iter)
                 logger.train_update(min(epoch_steps, epoch_size),
-                                    f"Time {t_step} Data {t_data} Loss {losses}")
-            now = time.perf_counter()
-            t_step.update(now - end)
-            dispatches.append([start_step + prev_iter + 1, waited, now - end])
-            end = now
-        logger.train_update(min(epoch_steps, epoch_size), "")
+                                    f"Time {dispatcher.t_step} Data {dispatcher.t_data} "
+                                    f"Loss {losses}")
 
-        # one sync for the whole epoch's metrics; fused metrics carry a
-        # leading [K] axis: one CSV row per optimizer step either way
-        full_rows = []
-        if pending:
-            full_rows = torch.cat([torch.stack([m[k].reshape(-1) for k in METRIC_KEYS], 1)
-                                   for m in pending]).double().cpu().tolist()
-            dispatches[-1][2] += time.perf_counter() - end  # the wait for those metrics
-        times = [[first + j, waited / fused, secs / fused]
-                 for first, waited, secs in dispatches for j in range(fused)]
+        full_rows, times = dispatcher.epoch(train_step, train_loader, epoch_size, METRIC_KEYS,
+                                            each)
+        logger.train_update(min(len(full_rows), epoch_size), "")
         train_loss = float(np.mean([r[0] for r in full_rows])) if full_rows else 0.0
         logger.write(f" * Avg Loss : {train_loss:.3f}")
         if is_main:
@@ -619,6 +680,100 @@ def _train(args, device: torch.device, datasets) -> int:
     for writer in [tb_writer] + output_writers:
         if writer is not None:
             writer.close()
+    return 0
+
+
+def _manydepth_rules(args) -> None:
+    """What ``--arch manydepth`` trains with; a SystemExit naming a flag it
+    does not take."""
+    refused = [("--distributed", args.distributed), ("--resume", args.resume),
+               ("--with-gt", args.with_gt), ("--remat", args.remat),
+               ("--pretrained-disp/-pose", args.pretrained_disp or args.pretrained_pose),
+               ("--folder-type pair", args.folder_type != "sequence")]
+    for flag, on in refused:
+        if on:
+            raise SystemExit(f"--arch manydepth does not take {flag}")
+    if not args.device_augment:
+        raise SystemExit("--arch manydepth needs --device-augment (the resize and the "
+                         "matching draws run on the device)")
+    if args.sequence_length != 3 or args.resnet_layers != 18:
+        raise SystemExit("--arch manydepth trains ResNet-18 networks on 3-frame snippets "
+                         "(frames 0, -1, +1)")
+    if (args.min_depth_bin, args.max_depth_bin) != DEPTH_BINS:
+        raise SystemExit("--arch manydepth takes --min-depth-bin and --max-depth-bin at their "
+                         f"defaults {DEPTH_BINS[0]} and {DEPTH_BINS[1]} alone: as in the public "
+                         "trainer, the adaptive depth-bin trackers (from 0.1 and 10) give the "
+                         "bins from the first step")
+
+
+def _train_manydepth(args, device: torch.device, train_set) -> int:
+    """ManyDepth's training (``training/manydepth.py``) through the port's
+    loader, ``device_prefetch``, the device augmentation and, with
+    ``--fused-steps``, ``_GraphedSteps``: one row of its metrics per step in
+    ``progress_log_full.csv``, the times in ``progress_log_time.csv``, and
+    each epoch's networks, optimizer and trackers in ``manydepth.pth.tar``.
+    No validation: the public trainer's is a depth evaluation of its own."""
+    from .models.manydepth import ManyDepth
+    from .training.manydepth import (METRIC_KEYS as MANYDEPTH_KEYS, ManyDepthConfig,
+                                     MatchingAugment, make_manydepth_optimizer,
+                                     make_manydepth_train_step, make_trackers)
+
+    _manydepth_rules(args)
+    save_path = os.path.join("checkpoints", args.name,
+                             datetime.datetime.now().strftime("%m-%d-%H:%M"))
+    os.makedirs(save_path, exist_ok=True)
+    print(f"=> will save everything to {save_path}")
+    print(f"{len(train_set)} samples found in {len(train_set.scenes)} train scenes")
+    loader = BatchLoader(train_set, args.batch_size, shuffle=True, num_workers=args.workers,
+                         drop_last=True, seed=args.seed, pin_memory=device.type == "cuda")
+    epoch_size = args.epoch_size or len(loader)
+    fused = max(1, min(args.fused_steps, epoch_size))
+    model = ManyDepth(args.resnet_layers, args.num_depth_bins,
+                      generator=torch.Generator().manual_seed(args.seed))
+    if args.with_pretrain:  # the public --weights_init pretrained: every ResNet from ImageNet
+        pth = find_imagenet_weights(args.imagenet_weights_dir, 18)
+        if pth is None:
+            raise _missing_imagenet("resnet18")
+        print(f"=> ImageNet encoder init: {pth}")
+        sd = load_torch_state_dict(pth)
+        for net, images in ((model.mono, 1), (model.multi, 1), (model.pose, 2)):
+            graft_imagenet_encoder(net, sd, 18, images)
+    model.to(device)
+    cfg = ManyDepthConfig(height=args.height, width=args.width, num_scales=args.num_scales,
+                          min_depth=args.min_depth, max_depth=args.max_depth,
+                          num_depth_bins=args.num_depth_bins,
+                          disparity_smoothness=args.disparity_smoothness)
+    augment = MatchingAugment(make_device_augment(AugmentConfig()), args.height, args.width)
+    trackers = make_trackers(cfg, device)
+    capturable = fused > 1 and device.type == "cuda"
+
+    def build(teacher: bool):
+        """Adam over all three networks, or over the multi-frame network
+        alone once the teacher is frozen, and the step over it."""
+        optimizer = make_manydepth_optimizer(model if teacher else model.multi, args.lr,
+                                             capturable)
+        return optimizer, make_manydepth_train_step(model, optimizer, cfg, device,
+                                                    args.precision, augment, args.seed, fused,
+                                                    trackers, teacher)
+
+    optimizer, train_step = build(args.freeze_teacher_epoch > 0)
+    _write_rows(os.path.join(save_path, args.log_full), [list(MANYDEPTH_KEYS)], "w")
+    _write_rows(os.path.join(save_path, TIME_LOG), [["step", "data_wait_s", "step_s"]], "w")
+    dispatcher = _Dispatcher(device, fused, args.profile_dir)
+    for epoch in range(args.epochs):
+        if epoch == args.freeze_teacher_epoch and epoch > 0:
+            print(f"=> epoch {epoch}: freezing the teacher and the pose network")
+            optimizer, train_step = build(False)
+        loader.set_epoch(epoch)
+        rows, times = dispatcher.epoch(train_step, loader, epoch_size, MANYDEPTH_KEYS)
+        loss = float(np.mean([r[0] for r in rows])) if rows else 0.0
+        print(f"epoch {epoch}: {len(rows)} steps, * Avg Loss : {loss:.4f}, depth bins "
+              f"{rows[-1][-2]:.3f}-{rows[-1][-1]:.3f}" if rows else f"epoch {epoch}: no steps")
+        _write_rows(os.path.join(save_path, args.log_full), rows)
+        _write_rows(os.path.join(save_path, TIME_LOG), times)
+        torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                    "trackers": trackers.cpu(), "epoch": epoch + 1, "step": dispatcher.n_iter,
+                    "args": vars(args)}, os.path.join(save_path, "manydepth.pth.tar"))
     return 0
 
 

@@ -332,6 +332,10 @@ class _GraphedSteps:
     graph is dropped, and the next two calls warm up and capture anew. A
     failed capture or replay raises; nothing falls back to the eager step.
 
+    ``metric_keys`` names the metrics ``update`` returns (SC-Depth's four by
+    default), ``wrappers`` the kernel wrappers whose launches a replay
+    counts; the augmentation's ``map_width`` sizes the static map buffer.
+
     Spans (``utils.profiling``, recorded under a profiler): ``step.wait_turn``
     around the wait for the replay two calls back, ``step.stage`` around the
     staging; none inside what the capture records. Counters: the host
@@ -342,9 +346,11 @@ class _GraphedSteps:
     """
 
     def __init__(self, k: int, device: torch.device, optimizer: torch.optim.Optimizer,
-                 update: Callable[[Batch], Dict[str, torch.Tensor]], augment_fn, aug_seed: int):
+                 update: Callable[[Batch], Dict[str, torch.Tensor]], augment_fn, aug_seed: int,
+                 metric_keys=METRIC_KEYS, wrappers=KERNEL_WRAPPERS):
         self.k, self.device, self.optimizer = k, device, optimizer
         self.update, self.augment_fn, self.aug_seed = update, augment_fn, aug_seed
+        self.metric_keys, self.wrappers = metric_keys, wrappers
         self.step = self.counted_state = None
         self.graph, self.warm = None, False
         self.inputs = self.maps = self.metrics = None
@@ -376,7 +382,7 @@ class _GraphedSteps:
                 self._capture()
                 setup = "setup.capture_s"
             self.graph.replay()
-            for fn, n in zip(KERNEL_WRAPPERS, self.launches):
+            for fn, n in zip(self.wrappers, self.launches):
                 fn.launches += n
         done = torch.cuda.Event()
         done.record(stream)
@@ -386,7 +392,7 @@ class _GraphedSteps:
         if setup is not None:
             profiling.counter(setup, time.perf_counter() - start)
         metrics = self.metrics.clone()
-        return {key: metrics[:, i] for i, key in enumerate(METRIC_KEYS)}
+        return {key: metrics[:, i] for i, key in enumerate(self.metric_keys)}
 
     def _stage(self, batches) -> None:
         """The batch into the static inputs and, with ``augment_fn``, the K
@@ -394,10 +400,11 @@ class _GraphedSteps:
         raw = {k: _to_device(batches[k], self.device) for k in SNIPPET_KEYS}
         if self.inputs is None:
             self.inputs = {k: torch.empty_like(v) for k, v in raw.items()}
-            self.metrics = torch.zeros((self.k, len(METRIC_KEYS)), device=self.device)
+            self.metrics = torch.zeros((self.k, len(self.metric_keys)), device=self.device)
             if self.augment_fn is not None:
                 _, b, h, w, _ = raw["tgt"].shape
-                self.maps = torch.empty((self.k, b, w + h + 5), device=self.device)
+                self.maps = torch.empty((self.k, b, self.augment_fn.map_width(h, w)),
+                                        device=self.device)
                 self.pinned = [torch.empty(self.maps.shape, pin_memory=True) for _ in range(2)]
         for k, v in raw.items():
             if v.shape != self.inputs[k].shape:
@@ -421,10 +428,10 @@ class _GraphedSteps:
             else:
                 snippet = self.augment_fn.apply_map(raw, self.maps[i])
             metrics = self.update(snippet)
-            self.metrics[i].copy_(torch.stack([metrics[k] for k in METRIC_KEYS]))
+            self.metrics[i].copy_(torch.stack([metrics[k] for k in self.metric_keys]))
 
     def _capture(self) -> None:
-        before = [fn.launches for fn in KERNEL_WRAPPERS]
+        before = [fn.launches for fn in self.wrappers]
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # Thread-local: the loader's threads pin host memory meanwhile.
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -432,8 +439,8 @@ class _GraphedSteps:
         profiling.counter("step.graph_kernels",
                           profiling.graph_kernel_nodes(graph.raw_cuda_graph()))
         graph.instantiate()  # what the capture's end does without keep_graph
-        self.launches = [fn.launches - n for fn, n in zip(KERNEL_WRAPPERS, before)]
-        for fn, n in zip(KERNEL_WRAPPERS, before):
+        self.launches = [fn.launches - n for fn, n in zip(self.wrappers, before)]
+        for fn, n in zip(self.wrappers, before):
             fn.launches = n
         self.graph = graph
 

@@ -63,7 +63,7 @@ def test_port_scripts_name_no_jax():
     imported, no JAX or Pallas variable is set, and no script file of the
     repository (the JAX package's CLIs) is run."""
     scripts = sorted((PORT_DIR / "scripts").glob("*.sh"))
-    assert len(scripts) == 12
+    assert len(scripts) == 13  # the root scripts' 12 and the port's ManyDepth script
     for f in scripts:
         text = f.read_text()
         modules = re.findall(r"python3?\s+-m\s+([\w.]+)", text) + re.findall(

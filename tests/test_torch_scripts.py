@@ -46,13 +46,19 @@ if args[:2] == ["-m", "{package}.train"]:
 """
 
 
+# Scripts of architectures that only the port trains (no root script runs them).
+PORT_ONLY = ("train_manydepth_kitti.sh",)
+
+
 def _scripts():
     return sorted(p.name for p in PORT_SCRIPTS.glob("*.sh"))
 
 
 def test_script_names_equal_the_root_scripts():
-    assert _scripts() == sorted(p.name for p in (ROOT / "scripts").glob("*.sh"))
-    assert len(_scripts()) == 12
+    assert sorted(set(_scripts()) - set(PORT_ONLY)) == \
+        sorted(p.name for p in (ROOT / "scripts").glob("*.sh"))
+    assert set(PORT_ONLY) <= set(_scripts())
+    assert len(_scripts()) == 13
 
 
 @pytest.mark.parametrize("name", _scripts())
