@@ -32,15 +32,23 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain and library or stream times. ``ms`` is CUDA events around
    back-to-back wrapper calls; ``device_ms`` is the kernel's own device time
    per call (torch.profiler, or a CUDA graph of the calls replayed under
-   CUDA events where the profiler records none).
+   CUDA events where the profiler records none). Then ManyDepth's cost
+   volume (``--cost-volume-only`` stops after it), and the decoder-input
+   kernel (``decoder_input_phase``; ``--decoder-input-only`` runs only the
+   build and it): every ``DepthDecoder`` input of the cells' shapes against
+   the plain composition, bf16 and fp32, its time beside its bytes bound,
+   and on width shards cut from whole images (two and four shards), each
+   shard's output against its columns of the whole image's. Its launches
+   are counted with the other kernels' on every path below (14 forwards
+   for each DispNet forward, 14 backwards for each backward).
 4. Slices 1-2's paths at full width: ResNet-18 DispNet and PoseNet from a
    seeded ``torch.Generator``, depth inference on [4, 256, 832, 3] and the
    photometric validation step on a B=4, N=2 snippet at 832x256, each with
    the launch counts at 0 just before it; the fp32 validation step against
    the CPU; times.
 5. The main path, the train step at full width (B=4, N=2, 832x256, bf16
-   convolutions, Adam): one step with the launch counts at 0, in which all
-   four kernels must launch; then 8 more steps with finite losses; median
+   convolutions, Adam): one step with the launch counts at 0, in which every
+   kernel must launch; then 8 more steps with finite losses; median
    step time fed a numpy batch and with the batch on the card; peak memory.
    Then the fp32 train step on the card against the CPU's plain step at
    B2 N2 128x416 (full-width ResNet-18): losses and every gradient.
@@ -89,7 +97,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ``eval_depth``, ``run_inference`` (4 frames), ``test_vo`` (batch 16),
    ``eval_odom`` (``--align 7dof``) and ``test_pose`` through their
    ``main``, at 832x256, each with the launch counts at 0 just before it
-   (all four kernels must stay at 0). Checked: ``test_disp``'s fp32 depth
+   (the losses' kernels and the backwards must stay at 0; the
+   decoder-input kernel runs 14 times a DispNet forward on the card).
+   Checked: ``test_disp``'s fp32 depth
    on the card against the CPU (4 frames) and ``test_vo``'s fp32
    trajectory (9 frames); ``eval_odom`` of the ground truth against
    itself; every output file and every printed metric. Printed: bf16
@@ -114,8 +124,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    equal the decoded JPEGs bit for bit; a 16-bit NYU depth PNG through
    ``ValidationSet``; then the train CLI from the JPEG tree (no
    ``--packed``; ``--with-gt`` validation on the velodyne depth) for 2
-   epochs of 10 steps with the launch counts at 0 (all four kernels in
-   every step). Printed: the codec's route, ETL ms per frame by stage and
+   epochs of 10 steps with the launch counts at 0 (every kernel in every
+   step; the decoder-input kernel also in the depth validation).
+   Printed: the codec's route, ETL ms per frame by stage and
    per format, the workers' start-up and memory, decode ms per 832x256
    JPEG one at a time and batched, the JPEG tree's CLI step and data wait
    against the packed CLI of phase 6.
@@ -300,6 +311,7 @@ from sc_sfmlearner_release_tpu_torch.training.checkpoint import (
     restore_train_state, save_checkpoint, save_jax_checkpoint,
 )
 from sc_sfmlearner_release_tpu_torch.utils.profiling import card_line
+from sc_sfmlearner_release_tpu_torch.utils.profiling import counters as profiling_counters
 
 DEVICE = "cuda"
 B, N, H, W = 4, 2, 256, 832
@@ -441,7 +453,7 @@ def device_phase() -> str:
 
 
 def build_phase() -> None:
-    names = ("warp_sample", "ssim", "ssim_bwd", "cost_volume")
+    names = ("warp_sample", "ssim", "ssim_bwd", "cost_volume", "decoder_input")
     secs = _build.build(names, verbose=True, force=True)
     log(f"[build] {' + '.join(n + '.cu' for n in names)} for sm_90a in {secs:.1f} s "
         "(parallel nvcc)")
@@ -544,6 +556,236 @@ def cost_volume_phase(rng: np.random.RandomState) -> dict:
     return {"name": "cost_volume", "ms": wrapper_ms, "device_ms": kernel_ms,
             "bound_ms": bound_ms, "bound_share": bound_ms / kernel_ms, "plain_ms": plain_ms,
             "max_rel_err": err, "confidence_flips": conf_flips, "lowest_cost_flips": arg_flips}
+
+
+# DepthDecoder's 14 convolution inputs (ops/decoder_input.py) at the cells'
+# shapes: 12 images through DispNet-18 and DispNet-50 at 832x256 (B4 N2),
+# and ManyDepth's B12 at 640x192 (ResNet-18 decoders).
+DECODER_CELLS = (("r18", 18, 12, 256, 832), ("r50", 50, 12, 256, 832),
+                 ("manydepth", 18, 12, 192, 640))
+# The gradients' max|err| / max|plain|. bf16: the kernel sums a source
+# pixel's padded positions and its 2x2 block in fp32 and rounds once; the
+# composition rounds the pad's sum to bf16 and then the upsample's sum, or,
+# on a bf16 source at scale 1, rounds after each of up to 3 atomic adds, so
+# the two differ by up to 2 bf16 units in the last place of the element:
+# 2 * 2^-7 of it at most, of max|plain| at most. fp32: only the order of the
+# sums differs (the pad's atomics), a few fp32 units in the last place.
+DECODER_GRAD_TOL = {torch.bfloat16: 2.0**-6, torch.float32: 1e-5}
+DECODER_ITERS = 20  # calls per CUDA graph timed
+# The decoder-input kernel's launches in one DepthDecoder forward.
+DECODER_INPUTS = 14
+# Width shards of DispNet-18's decoder inputs, cut from whole images in one
+# process: (label, n, h, w, shards). 832x256 in two shards, and 128x64 in
+# four, whose deepest maps are one column a shard.
+DECODER_SHARDS = (("r18_832x256", 2, 256, 832, 2), ("r18_128x64", 2, 64, 128, 4))
+
+
+def decoder_sites(layers: int, n: int, h: int, w: int) -> list:
+    """``(name, source shape or None, skip shape or None, scale)`` of each
+    of DepthDecoder's 14 inputs, in its order of calls."""
+    from sc_sfmlearner_release_tpu_torch.models.disp_net import DEC_CHANNELS
+    from sc_sfmlearner_release_tpu_torch.models.resnet import encoder_channels
+
+    enc, dec = encoder_channels(layers), DEC_CHANNELS
+    at = lambda c, level: (n, c, h >> level, w >> level)
+    sites = [("upconv_4_0", None, at(enc[4], 5), 1)]
+    for i in range(4, -1, -1):
+        if i < 4:
+            sites.append((f"upconv_{i}_0", at(dec[i + 1], i + 1), None, 1))
+        sites.append((f"iconv_{i}_1", at(dec[i], i + 1), at(enc[i - 1], i) if i else None, 2))
+        if i < 4:
+            sites.append((f"dispconv_{i}", at(dec[i], i), None, 1))
+    return sites
+
+
+def decoder_site_bytes(src, skip, scale: int, dtype) -> int:
+    """One site's bytes, forward or backward alike: the source (``dtype``)
+    and the fp32 skip read once and the padded input (``dtype``) written
+    once; the backward reads the padded input's gradient and writes the
+    other two."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    n, _, hh, ww = skip if skip else (src[0], 0, src[2] * scale, src[3] * scale)
+    c = (src[1] if src else 0) + (skip[1] if skip else 0)
+    src_b = math.prod(src) * item if src else 0
+    skip_b = math.prod(skip) * 4 if skip else 0
+    return src_b + skip_b + n * c * (hh + 2) * (ww + 2) * item
+
+
+def decoder_input_phase(rng: np.random.RandomState) -> dict:
+    """The decoder-input kernel against its plain version at every decoder
+    shape of the cells, bf16 (autocast) and fp32: the forward bit for bit
+    and channels-last, the gradients within ``DECODER_GRAD_TOL``; each
+    site's forward and backward device time (a CUDA graph of the calls)
+    beside its bytes bound, summed per decoder pass; the plain composition's
+    time; the kernels' names in the profiler; and the kernel on width
+    shards (``decoder_shard_check``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sc_sfmlearner_release_tpu_torch.ops import decoder_input as di
+
+    dev = torch.device(DEVICE)
+    report, worst = {}, {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for cell, layers, n, h, w in DECODER_CELLS:
+        totals = {"fwd_ms": 0.0, "bwd_ms": 0.0, "fwd_bound_ms": 0.0, "bwd_bound_ms": 0.0,
+                  "plain_ms": 0.0}
+        for name, src_shape, skip_shape, scale in decoder_sites(layers, n, h, w):
+            for dtype in (torch.bfloat16, torch.float32):
+                src = (torch.from_numpy(rng.standard_normal(src_shape).astype(np.float32))
+                       .to(dev, dtype).contiguous(memory_format=torch.channels_last)
+                       if src_shape else None)
+                skip = (torch.from_numpy(rng.standard_normal(skip_shape).astype(np.float32))
+                        .to(dev) if skip_shape else None)
+                leaves = [t.requires_grad_(True) for t in (src, skip) if t is not None]
+                plain_leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+                plain_src = plain_leaves[0] if src is not None else None
+                plain_skip = plain_leaves[-1] if skip is not None else None
+                amp = (torch.autocast("cuda", dtype=torch.bfloat16) if dtype == torch.bfloat16
+                       else contextlib.nullcontext())
+                with amp:
+                    got = di.decoder_input(src, skip, scale)
+                want = di.decoder_input_plain(plain_src, plain_skip, scale).to(dtype)
+                label = f"decoder_input {cell} {name} {str(dtype)[6:]}"
+                if not (got.dtype == dtype and got.shape == want.shape
+                        and got.is_contiguous(memory_format=torch.channels_last)
+                        and torch.equal(got, want)):
+                    raise AssertionError(f"{label}: forward differs from the plain version "
+                                         f"({got.dtype}, {tuple(got.shape)})")
+                g = torch.randn(want.shape, device=dev, dtype=dtype).contiguous(
+                    memory_format=torch.channels_last)
+                grads = torch.autograd.grad(got, leaves, g)
+                plain_grads = torch.autograd.grad(want, plain_leaves, g)
+                for which, a, b in zip(("src", "skip") if src is not None else ("skip",),
+                                       grads, plain_grads):
+                    scale_ref = b.float().abs().max().item()
+                    err = (a.float() - b.float()).abs().max().item() / max(scale_ref, 1e-30)
+                    worst[dtype] = max(worst[dtype], err)
+                    if not (err <= DECODER_GRAD_TOL[dtype] and a.dtype == b.dtype
+                            and torch.isfinite(a).all().item()):
+                        raise AssertionError(f"{label} d/d{which}: max|err|/max|ref| {err:.3e} "
+                                             f"> {DECODER_GRAD_TOL[dtype]:.3g}")
+                if dtype != torch.bfloat16:
+                    continue
+                s = di._Shape(src.detach() if src is not None else None,
+                              skip.detach() if skip is not None else None, scale, dtype)
+                xs = src.detach() if src is not None else None
+                ks = skip.detach() if skip is not None else None
+                fwd_ms = graph_ms(lambda: di._launch_fwd(xs, ks, s), DECODER_ITERS)
+                bwd_ms = graph_ms(lambda: di.decoder_input_bwd(g, s, xs is not None,
+                                                               ks is not None), DECODER_ITERS)
+
+                def plain_pass():
+                    with torch.autocast("cuda", dtype=torch.bfloat16):
+                        out = di.decoder_input_plain(plain_src, plain_skip, scale).to(dtype)
+                    torch.autograd.grad(out, plain_leaves, g)
+
+                plain_ms = cuda_ms(plain_pass, 5, warmup=1)
+                fwd_b = bwd_b = decoder_site_bytes(src_shape, skip_shape, scale, dtype)
+                totals["fwd_ms"] += fwd_ms
+                totals["bwd_ms"] += bwd_ms
+                totals["fwd_bound_ms"] += fwd_b / HBM_BYTES_PER_S * 1e3
+                totals["bwd_bound_ms"] += bwd_b / HBM_BYTES_PER_S * 1e3
+                totals["plain_ms"] += plain_ms
+                fwd_share = 100 * fwd_b / HBM_BYTES_PER_S * 1e3 / fwd_ms
+                log(f"  {label}: fwd {fwd_ms:.4f} ms ({fwd_share:.0f}"
+                    f"% of {fwd_b / 1e6:.1f} MB), bwd {bwd_ms:.4f} ms "
+                    f"({100 * bwd_b / HBM_BYTES_PER_S * 1e3 / bwd_ms:.0f}%), plain fwd+bwd "
+                    f"{plain_ms:.4f} ms")
+            torch.cuda.empty_cache()
+        totals["share"] = ((totals["fwd_bound_ms"] + totals["bwd_bound_ms"])
+                           / (totals["fwd_ms"] + totals["bwd_ms"]))
+        log(f"  decoder_input {cell}: one decoder pass (14 sites, bf16) {json.dumps(totals)}")
+        report[cell] = totals
+    log(f"  decoder_input: forwards bit for bit; worst gradient max|err|/max|ref| bf16 "
+        f"{worst[torch.bfloat16]:.3e} (tol {DECODER_GRAD_TOL[torch.bfloat16]:.3g}), fp32 "
+        f"{worst[torch.float32]:.3e} (tol {DECODER_GRAD_TOL[torch.float32]:.3g})")
+
+    # The kernels' names as the profiler records them (a trace's groups);
+    # several calls, since the profiler can miss a launch just after it starts.
+    x = torch.randn(2, 16, 8, 8, device=dev).contiguous(memory_format=torch.channels_last)
+    x.requires_grad_(True)
+    skip = torch.randn(2, 8, 16, 16, device=dev)
+    di.decoder_input(x, skip, 2).sum().backward()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            di.decoder_input(x, skip, 2).sum().backward()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "upsample_cat_reflection_pad" in e.key})
+    log(f"  decoder_input: profiler kernel names {names}")
+    if len(names) != 2:
+        raise AssertionError(f"decoder_input: expected a forward and a backward kernel, {names}")
+
+    shards = decoder_shard_check(rng)
+    torch.cuda.empty_cache()
+    return {"name": "decoder_input", "cells": report,
+            "worst_grad_rel_err": {str(k)[6:]: v for k, v in worst.items()},
+            "shards_worst_grad_rel_err": shards}
+
+
+def decoder_shard_check(rng: np.random.RandomState) -> dict:
+    """The kernel on width shards (``--spatial-shards``) against the plain
+    composition on the whole image, at ``DECODER_SHARDS``: each shard's
+    source and skip cut with one column from each neighbour (none at the
+    image's edges) and launched with those side flags, as
+    ``decoder_input`` launches it after ``distributed.halo``. Each shard's
+    output equals its columns of the whole image's padded input bit for
+    bit; the shards' gradients, each halo column's added where it came
+    from (the halo's backward), match the whole image's fp32 gradient
+    within ``DECODER_GRAD_TOL``. Returns the worst error by dtype."""
+    from sc_sfmlearner_release_tpu_torch.ops import decoder_input as di
+
+    dev = torch.device(DEVICE)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for label, n, h, w, count in DECODER_SHARDS:
+        for name, src_shape, skip_shape, scale in decoder_sites(18, n, h, w):
+            for dtype in (torch.bfloat16, torch.float32):
+                src = (torch.from_numpy(rng.standard_normal(src_shape).astype(np.float32))
+                       .to(dev, dtype) if src_shape else None)
+                skip = (torch.from_numpy(rng.standard_normal(skip_shape).astype(np.float32))
+                        .to(dev) if skip_shape else None)
+                leaves = [t.float().requires_grad_(True) for t in (src, skip) if t is not None]
+                whole = di.decoder_input_plain(leaves[0] if src is not None else None,
+                                               leaves[-1] if skip is not None else None, scale)
+                width = (whole.shape[3] - 2) // count  # a shard's columns, upsampled
+                widths = ([width // scale] if src is not None else []) + (
+                    [width] if skip is not None else [])
+                grads = [torch.zeros_like(t) for t in leaves]
+                ct_whole = torch.zeros_like(whole)
+                for i in range(count):
+                    left, right = int(i > 0), int(i < count - 1)
+                    cut = lambda t, wd: t[..., i * wd - left:(i + 1) * wd + right]
+                    xs = di._last(cut(src, width // scale)) if src is not None else None
+                    ks = cut(skip, width).contiguous() if skip is not None else None
+                    s = di._Shape(xs, ks, scale, dtype, left, right)
+                    out = di._launch_fwd(xs, ks, s)
+                    want = whole.detach()[..., i * width:(i + 1) * width + 2].to(dtype)
+                    if not (out.is_contiguous(memory_format=torch.channels_last)
+                            and torch.equal(out, want)):
+                        raise AssertionError(f"decoder_input shards {label} {name} "
+                                             f"{str(dtype)[6:]}: shard {i} of {count} differs "
+                                             "from its columns of the whole image")
+                    ct = torch.randn(out.shape, device=dev, dtype=dtype).contiguous(
+                        memory_format=torch.channels_last)
+                    ct_whole[..., i * width:(i + 1) * width + 2] += ct.float()
+                    got = [g for g in di.decoder_input_bwd(ct, s, xs is not None,
+                                                           ks is not None) if g is not None]
+                    for acc, g, wd in zip(grads, got, widths):
+                        cut(acc, wd).add_(g.float())
+                for which, a, b in zip(("src", "skip") if src is not None else ("skip",),
+                                       grads, torch.autograd.grad(whole, leaves, ct_whole)):
+                    err = (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                    worst[dtype] = max(worst[dtype], err)
+                    if not err <= DECODER_GRAD_TOL[dtype]:
+                        raise AssertionError(f"decoder_input shards {label} {name} "
+                                             f"{str(dtype)[6:]} d/d{which}: max|err|/max|ref| "
+                                             f"{err:.3e} > {DECODER_GRAD_TOL[dtype]:.3g}")
+        log(f"  decoder_input: {count} width shards of DispNet-18's inputs at {label}: "
+            "forwards bit for bit")
+    log(f"  decoder_input: width shards' worst gradient max|err|/max|ref| bf16 "
+        f"{worst[torch.bfloat16]:.3e}, fp32 {worst[torch.float32]:.3e}")
+    return {str(k)[6:]: v for k, v in worst.items()}
 
 
 def check_close(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
@@ -936,12 +1178,18 @@ def slice_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
     zero_launches()
     disp, depth = infer(batch["tgt"])
     infer_launches = read_launches()
+    fused = profiling_counters().get("nets.decoder_fused_pct")
     zero_launches()
     metrics = eval_step(batch)
     launches = read_launches()
-    log(f"[slice] launches: inference {infer_launches}, validation step {launches}")
-    if launches["warp_sample_bwd"] or launches["ssim_nchw_bwd"]:
+    log(f"[slice] launches: inference {infer_launches}, validation step {launches}; "
+        f"nets.decoder_fused_pct {fused}")
+    if any(launches[k] for k in ("warp_sample_bwd", "ssim_nchw_bwd", "decoder_input_bwd")):
         raise AssertionError("the validation step launched a backward kernel")
+    if infer_launches["decoder_input"] != DECODER_INPUTS or fused != 100.0:
+        raise AssertionError(f"inference: {infer_launches['decoder_input']} decoder-input "
+                             f"launches and nets.decoder_fused_pct {fused}, expected "
+                             f"{DECODER_INPUTS} and 100")
     if disp.shape != (B, H, W, 1) or not torch.isfinite(depth).all():
         raise AssertionError(f"inference: shape {tuple(disp.shape)} or non-finite depth")
     if not (disp.min().item() >= 0.01 and disp.max().item() <= 10.01):
@@ -950,7 +1198,7 @@ def slice_phase(seed: int, rng: np.random.RandomState, profile: bool) -> dict:
     log(f"[slice] bf16 eval step: {vals}")
     if not all(np.isfinite(v) for v in vals.values()) or vals["photo_loss"] <= 0:
         raise AssertionError(f"eval step: bad losses {vals}")
-    for name in ("warp_sample", "ssim_nchw"):
+    for name in ("warp_sample", "ssim_nchw", "decoder_input"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the validation path")
 
@@ -2135,13 +2383,32 @@ def write_eval_data(root: str, seed: int) -> dict:
 
 def run_eval_cli(module, argv, label: str):
     """``run_main`` of an eval CLI: (its printed output, wall seconds,
-    launches); it must exit 0 and launch none of the four kernels."""
+    launches); it must exit 0 and launch none of the losses' kernels and
+    no backward; the decoder-input kernel ``DECODER_INPUTS`` times a DispNet
+    forward where the CLI runs DispNet on the card (``test_disp``,
+    ``run_inference``), else never."""
     code, text, secs, launches = run_main(module, argv, label)
     if code != 0:
         raise AssertionError(f"{label} exited {code}")
-    if any(launches.values()):
+    decoder = launches["decoder_input"]
+    dispnet = module in (test_disp, run_inference) and "cpu" not in argv
+    if (any(v for k, v in launches.items() if k != "decoder_input")
+            or decoder % DECODER_INPUTS or (decoder > 0) != dispnet):
         raise AssertionError(f"{label} launched {launches}")
     return text, secs, launches
+
+
+def with_depth_validation(want: dict, launches: dict) -> dict:
+    """``want`` of a train CLI's steps and photometric validations, with
+    its ``--with-gt`` validation added: DispNet's forward alone (and, with
+    ``--log-output``, the logged images' inference), ``DECODER_INPUTS``
+    decoder-input launches each. Their number is the validation set's, read
+    from ``launches``: a positive whole number of forwards, else ``want``
+    unchanged (and the comparison fails)."""
+    extra = launches["decoder_input"] - want["decoder_input"]
+    if extra <= 0 or extra % DECODER_INPUTS:
+        return want
+    return {**want, "decoder_input": launches["decoder_input"]}
 
 
 def run_main(module, argv, label: str):
@@ -2917,7 +3184,7 @@ def prepare_phase(seed: int, smi: str, per_step: dict, packed_times: dict) -> di
     save = run_cli(dumps["kitti_raw"], "smoke_jpeg", seed, "--with-gt",
                    data_args=("--device-augment",))
     launches = read_launches()
-    want = {k: CLI_STEPS * per_step[k] for k in WRAPPERS}
+    want = with_depth_validation({k: CLI_STEPS * per_step[k] for k in WRAPPERS}, launches)
     log(f"[prepare-cli] launches over {CLI_STEPS} train steps from the JPEG tree and the "
         f"ground-truth validation: {launches}")
     if launches != want:
@@ -3143,7 +3410,8 @@ def tools_phase(seed: int, smi: str, per_step: dict, graph_device_ms: float) -> 
                    data_args=("--device-augment",))
     by_path["synthetic_cli"] = read_launches()
     rows = read_rows(os.path.join(save, "progress_log_full.csv"))
-    want = {k: 10 * per_step[k] for k in WRAPPERS}
+    want = with_depth_validation({k: 10 * per_step[k] for k in WRAPPERS},
+                                 by_path["synthetic_cli"])
     log(f"[tools] train CLI from the synthetic JPEG tree, --with-gt on its .npy depth: "
         f"launches {by_path['synthetic_cli']} (expected {want}), {len(rows)} loss rows, "
         f"last {rows[-1]}")
@@ -3155,7 +3423,10 @@ def tools_phase(seed: int, smi: str, per_step: dict, graph_device_ms: float) -> 
                                                           "overfit_check")
     ratio, corr = printed(text, "photo loss:")[-1], printed(text, "depth correlation")[0]
     ms = printed(text, "ms per step after the first:")[0]
-    want = {k: 300 * per_step[k] + (k == "warp_sample") for k in WRAPPERS}
+    # The scene's reference views warp once; the depth correlation runs
+    # DispNet's forward once.
+    want = {k: 300 * per_step[k] + (k == "warp_sample")
+            + DECODER_INPUTS * (k == "decoder_input") for k in WRAPPERS}
     log(f"[tools] overfit_check (300 steps, 128x256, eager bf16) | {smi}: loss ratio {ratio}%, "
         f"depth correlation {corr}, {ms} ms per step, {secs:.1f} s; launches "
         f"{by_path['overfit_check']} (expected {want})")
@@ -3197,9 +3468,13 @@ def tools_phase(seed: int, smi: str, per_step: dict, graph_device_ms: float) -> 
     # Each variant takes K (16) steps per call: 3 warm calls and n * reps timed.
     steps = ablate_step.FUSED * (3 + n * reps)
     want = {k: steps * per_step[k] * (2 if k.startswith("warp") else 1) for k in WRAPPERS}
+    # All three run the networks; convs_only's loss, a sum of every scale's
+    # depth, reaches every decoder input, heads included.
+    want["decoder_input"] = 3 * steps * per_step["decoder_input"]
+    want["decoder_input_bwd"] = steps * (2 * per_step["decoder_input_bwd"] + DECODER_INPUTS)
     log(f"[tools] ablate_step (K={ablate_step.FUSED}, device ms per step) | {smi}: {times}, "
         f"{secs:.1f} s; launches {by_path['ablate_step']} (expected {want}: full and no_ssim "
-        "warp, full alone runs SSIM, convs_only none)")
+        "warp, full alone runs SSIM, all three run the networks)")
     if code != 0 or "FAILED" in text or by_path["ablate_step"] != want:
         raise AssertionError("ablate_step failed")
     shutil.rmtree(root, ignore_errors=True)
@@ -3470,6 +3745,8 @@ def run_config_cli(root: str, argv: list, label: str, want: dict) -> tuple:
     zero_launches()
     save = run_train(root, argv, label)
     launches = read_launches()
+    if "--with-gt" in argv:
+        want = with_depth_validation(want, launches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[{label}] launches {launches} (expected {want}); peak device memory {peak:.3f} GiB")
     if launches != want:
@@ -3667,6 +3944,8 @@ def main(argv=None) -> int:
                         "many more seeds, and report its worst errors and gate crossings")
     p.add_argument("--cost-volume-only", action="store_true",
                    help="stop after the kernels' phase and the cost volume's")
+    p.add_argument("--decoder-input-only", action="store_true",
+                   help="run only the build and the decoder-input kernel's phase")
     if argv is None:
         argv = sys.argv[1:]
     if argv[:1] == ["--count-launches"]:
@@ -3680,6 +3959,10 @@ def main(argv=None) -> int:
     smi = device_phase()
     build_phase()
     rng = np.random.RandomState(args.seed)
+    if args.decoder_input_only:
+        log("[decoder_input] DepthDecoder's inputs against the plain composition")
+        print(json.dumps({"kernels": [decoder_input_phase(rng)]}), flush=True)
+        return 0
     log("[kernels] against their plain versions at the main path's shapes")
     inputs = warp_inputs(rng)
     kernels = [warp_phase(inputs), warp_bwd_phase(inputs, rng), ssim_phase(rng),
@@ -3690,6 +3973,8 @@ def main(argv=None) -> int:
     if args.cost_volume_only:
         print(json.dumps({"kernels": [cost_volume_kernel]}), flush=True)
         return 0
+    log("[decoder_input] DepthDecoder's inputs against the plain composition")
+    decoder_input_kernel = decoder_input_phase(rng)
     by_path = slice_phase(args.seed, rng, args.profile)
     by_path["train_step"], step_device_ms = train_phase(args.seed, rng, args.profile)
     log("[augment] the device augmentation on the card against the CPU")
@@ -3746,10 +4031,15 @@ def main(argv=None) -> int:
         k["launches_per_train_step"] = by_path["train_step"][k["name"]]
         k["launches_by_path"] = {path: counts[k["name"]] for path, counts in by_path.items()}
         k["nyu_b16"] = nyu_kernels[k["name"]]
+    decoder_input_kernel["launches_per_train_step"] = {
+        k: by_path["train_step"][k] for k in ("decoder_input", "decoder_input_bwd")}
+    decoder_input_kernel["launches_by_path"] = {
+        path: {k: counts[k] for k in ("decoder_input", "decoder_input_bwd")}
+        for path, counts in by_path.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     if failures:
         raise AssertionError(f"graph checks failed: {failures}")
-    print(json.dumps({"kernels": kernels + [cost_volume_kernel]}))
+    print(json.dumps({"kernels": kernels + [cost_volume_kernel, decoder_input_kernel]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,9 +6,14 @@ upsampling with encoder skips, and per-scale heads
 ``disp = 10 * sigmoid(x) + 0.01``. Returns 4 scales, fine to coarse.
 Parameter names follow the reference checkpoint (``decoder.decoder.<i>``).
 Only the unpacked math is ported; the JAX package's lane-packed decoder
-computes the same numbers. Under width sharding (``parallel/spatial.py``)
-the pads take their halos from the neighbouring shards; the nearest
-upsampling and the skip concatenations stay on the shard's own columns.
+computes the same numbers. Each convolution's input (the upsampling, the
+skip concatenation and the reflect pad) is ``ops/decoder_input.py``'s: one
+kernel on the card, written channels-last, the plain composition on the
+CPU. Under width sharding (``parallel/spatial.py``) the pads take their
+halos from the neighbouring shards; the nearest upsampling and the skip
+concatenations stay on the shard's own columns. The counter
+``nets.decoder_fused_pct`` (``utils/profiling.py``) is the share of the
+latest forward's 14 inputs that the kernel assembled (its launches).
 """
 
 from __future__ import annotations
@@ -19,7 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..parallel.spatial import reflect_pad1
+from ..ops.decoder_input import decoder_input
+from ..utils import profiling
 from .resnet import ResNetEncoder, default_generator, encoder_channels, torch_default_conv_init_
 
 ALPHA = 10.0
@@ -29,15 +35,17 @@ SCALES = (0, 1, 2, 3)
 
 
 class Conv3x3(nn.Module):
-    """Reflection-pad 1, then a 3x3 valid conv (``parallel/spatial.py``'s
-    pad: under width sharding the halo inside the image)."""
+    """A 3x3 valid conv on ``decoder_input(x, skip, scale)``: ``x``
+    upsampled by ``scale``, ``skip`` after it, reflection-padded by 1
+    (under width sharding the halo inside the image)."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 3)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(reflect_pad1(x))
+    def forward(self, x: Optional[torch.Tensor], skip: Optional[torch.Tensor] = None,
+                scale: int = 1) -> torch.Tensor:
+        return self.conv(decoder_input(x, skip, scale))
 
 
 class ConvBlock(nn.Module):
@@ -47,8 +55,9 @@ class ConvBlock(nn.Module):
         super().__init__()
         self.conv = Conv3x3(cin, cout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.elu(self.conv(x))
+    def forward(self, x: Optional[torch.Tensor], skip: Optional[torch.Tensor] = None,
+                scale: int = 1) -> torch.Tensor:
+        return F.elu(self.conv(x, skip, scale))
 
 
 class DepthDecoder(nn.Module):
@@ -72,17 +81,16 @@ class DepthDecoder(nn.Module):
         self.decoder = nn.ModuleList(mods)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        outputs = {}
-        x = feats[-1]
+        outputs, launches = {}, decoder_input.launches
+        x = None  # upconv_4_0 pads the deepest feature alone
         for k, i in enumerate(range(4, -1, -1)):
-            x = self.decoder[2 * k](x)
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-            if i > 0:
-                x = torch.cat([x, feats[i - 1]], dim=1)
-            x = self.decoder[2 * k + 1](x)
+            x = self.decoder[2 * k](x, feats[-1] if x is None else None)
+            x = self.decoder[2 * k + 1](x, feats[i - 1] if i > 0 else None, scale=2)
             if i in SCALES:
                 disp = torch.sigmoid(self.decoder[10 + i](x).float())
                 outputs[i] = disp if self.head == "sigmoid" else ALPHA * disp + BETA
+        fused = decoder_input.launches - launches
+        profiling.counter("nets.decoder_fused_pct", 100.0 * fused / len(self.decoder))
         return tuple(outputs[s] for s in SCALES)
 
 

@@ -252,11 +252,32 @@ def test_ssim_grad_goes_through_the_backward_kernel(stubbed_kernels):
     ("warp_sample", "ops/warp_band.py::_band_sample_bwd"),
     ("ssim", "ops/pallas_ssim.py::"),
     ("ssim_bwd", "ops/pallas_ssim.py:150-158"),
+    ("decoder_input", "ops/reflect_pad.py"),
 ])
 def test_kernel_sources_name_what_they_replace(name, replaces):
     text = (PORT_DIR / "csrc" / f"{name}.cu").read_text()
     assert replaces in text and "Bound: bytes" in text
     assert "cudaGetLastError" in text and 'extern "C"' in text
+
+
+@pytest.mark.parametrize("types", ["float, float", "__nv_bfloat16, __nv_bfloat16",
+                                   "float, __nv_bfloat16"])
+def test_decoder_input_kernels_fall_in_the_pad_group(types):
+    """The decoder-input kernels' names, as a trace gives them (demangled,
+    with their template arguments and parameters), fall in the yardstick's
+    pad/pool/upsample group, which held the PyTorch kernels they replace."""
+    from benchmark import yardstick
+
+    text = (PORT_DIR / "csrc" / "decoder_input.cu").read_text()
+    kernels = re.findall(r"__global__ void __launch_bounds__\(\w+\) (\w+)\(", text)
+    assert kernels == ["upsample_cat_reflection_pad_fwd", "upsample_cat_reflection_pad_bwd"]
+    for kernel in kernels:
+        src, out = types.split(", ")
+        params = (f"{src} const*, float const*, {out}*" if kernel.endswith("fwd")
+                  else f"{out} const*, {src}*, float*")
+        name = (f"void (anonymous namespace)::{kernel}<{types}>({params}, "
+                "(anonymous namespace)::Shape, int)")
+        assert yardstick.group_of(name) == "pad/pool/upsample", name
 
 
 def test_ssim_variants_still_apply_to_the_kernel_source():

@@ -18,12 +18,12 @@ import torch
 from sc_sfmlearner_release_tpu.models import DispNet as JDispNet
 from sc_sfmlearner_release_tpu.models import PoseNet as JPoseNet
 from sc_sfmlearner_release_tpu_torch.models import DispNet, PoseNet
-from sc_sfmlearner_release_tpu_torch.models.disp_net import reflect_pad1
 from sc_sfmlearner_release_tpu_torch.models.convert import (
     disp_from_jax,
     from_jax_variables,
     to_jax_variables,
 )
+from sc_sfmlearner_release_tpu_torch.parallel.spatial import reflect_pad1
 
 B, H, W = 2, 64, 96
 RTOL = 1e-4

@@ -50,9 +50,8 @@ from sc_sfmlearner_release_tpu_torch.data.device_augment import (
     AugmentConfig, make_device_augment, step_generator,
 )
 from sc_sfmlearner_release_tpu_torch.models.convert import from_jax_variables
-from sc_sfmlearner_release_tpu_torch.models.disp_net import reflect_pad1
 from sc_sfmlearner_release_tpu_torch.parallel import distributed
-from sc_sfmlearner_release_tpu_torch.parallel.spatial import halo_widths
+from sc_sfmlearner_release_tpu_torch.parallel.spatial import halo_widths, reflect_pad1
 from sc_sfmlearner_release_tpu_torch.training import (
     LossConfig, make_eval_depth_step, make_eval_step,
 )
