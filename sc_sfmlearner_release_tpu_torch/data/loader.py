@@ -80,9 +80,6 @@ class _Pass:
         self.out: List[Optional[Dict]] = [None] * len(n_valid)
         self.failed: Optional[Tuple[int, Exception]] = None  # earliest failed batch, error
         self.stopped = False
-        self.loading = 0  # samples started and not finished
-        self.loading_sum = 0  # ``loading`` summed at each start, the sample included
-        self.started = 0
 
     def _claim(self) -> Optional[int]:
         """The position of the next sample to load, once staging has room;
@@ -92,9 +89,6 @@ class _Pass:
                 if self.next < (self.taken + PREFETCH) * self.rows + self.loader.num_workers:
                     p = self.next
                     self.next += 1
-                    self.loading += 1
-                    self.loading_sum += self.loading
-                    self.started += 1
                     return p
                 self.room.wait()
             return None
@@ -123,13 +117,11 @@ class _Pass:
                         out[k][1][r] = v
             except Exception as exc:  # raised again on the consumer's side
                 with self.lock:
-                    self.loading -= 1
                     if self.failed is None or b < self.failed[0]:
                         self.failed = (b, exc)
                     self.ready.notify()
                 return
             with self.lock:
-                self.loading -= 1
                 self.left[b] -= 1
                 if not self.left[b]:
                     self.ready.notify()
@@ -145,7 +137,6 @@ class _Pass:
             out, self.out[b] = self.out[b], None
             self.taken = b + 1
             self.room.notify_all()
-            profiling.counter("data.in_flight_mean", self.loading_sum / self.started)
         batch = {k: v for k, (v, _) in out.items()}
         batch["_n_valid"] = np.asarray(self.n_valid[b], np.int32)
         return batch
@@ -189,10 +180,8 @@ class BatchLoader:
         and the steps cut the columns (``distributed.local_frames``).
 
     Records the span ``data.sample`` around each sample's load and row
-    write (on its thread, with its batch), ``data.queue_wait`` around the
-    consumer's wait for a batch, and the counter ``data.in_flight_mean``:
-    the mean number of samples loading when one starts (itself included),
-    over the latest pass so far.
+    write (on its thread, with its batch) and ``data.queue_wait`` around the
+    consumer's wait for a batch.
     """
 
     def __init__(

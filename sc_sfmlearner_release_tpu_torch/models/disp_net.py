@@ -11,9 +11,7 @@ skip concatenation and the reflect pad) is ``ops/decoder_input.py``'s: one
 kernel on the card, written channels-last, the plain composition on the
 CPU. Under width sharding (``parallel/spatial.py``) the pads take their
 halos from the neighbouring shards; the nearest upsampling and the skip
-concatenations stay on the shard's own columns. The counter
-``nets.decoder_fused_pct`` (``utils/profiling.py``) is the share of the
-latest forward's 14 inputs that the kernel assembled (its launches).
+concatenations stay on the shard's own columns.
 """
 
 from __future__ import annotations
@@ -25,7 +23,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.decoder_input import decoder_input
-from ..utils import profiling
 from .resnet import ResNetEncoder, default_generator, encoder_channels, torch_default_conv_init_
 
 ALPHA = 10.0
@@ -81,7 +78,7 @@ class DepthDecoder(nn.Module):
         self.decoder = nn.ModuleList(mods)
 
     def forward(self, feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
-        outputs, launches = {}, decoder_input.launches
+        outputs = {}
         x = None  # upconv_4_0 pads the deepest feature alone
         for k, i in enumerate(range(4, -1, -1)):
             x = self.decoder[2 * k](x, feats[-1] if x is None else None)
@@ -89,8 +86,6 @@ class DepthDecoder(nn.Module):
             if i in SCALES:
                 disp = torch.sigmoid(self.decoder[10 + i](x).float())
                 outputs[i] = disp if self.head == "sigmoid" else ALPHA * disp + BETA
-        fused = decoder_input.launches - launches
-        profiling.counter("nets.decoder_fused_pct", 100.0 * fused / len(self.decoder))
         return tuple(outputs[s] for s in SCALES)
 
 

@@ -21,7 +21,7 @@ python -m sc_sfmlearner_release_tpu_torch.train $TRAIN_SET \
 -b12 --lr 1e-4 --epochs 20 \
 --height 192 --width 640 --num-scales 4 \
 --min-depth 0.1 --max-depth 100 \
---num-depth-bins 96 --min-depth-bin 0.1 --max-depth-bin 20.0 \
+--num-depth-bins 96 \
 --disparity-smoothness 1e-3 --freeze-teacher-epoch 15 \
 --with-pretrain 1 ${IMAGENET_WEIGHTS_DIR:+--imagenet-weights-dir "$IMAGENET_WEIGHTS_DIR"} \
 --packed --device-augment --fused-steps ${FUSED_STEPS:-16} \

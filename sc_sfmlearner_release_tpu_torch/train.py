@@ -75,10 +75,10 @@ teacher, the cost-volume network and the pose network, four-scale minimum
 reprojection, adaptive depth bins) instead of SC-Depth, with ManyDepth's
 options (``--height/--width``, the frames resized on the device after
 ``--device-augment``, ``--num-scales`` (4 unless given), ``--num-depth-bins``,
-``--min/max-depth-bin`` (their defaults alone), ``--disparity-smoothness``,
-``--freeze-teacher-epoch``); ``scripts/train_manydepth_kitti.sh`` carries
-the published values. It logs each step's metrics and saves
-``manydepth.pth.tar`` each epoch, without validation, on one process.
+``--disparity-smoothness``, ``--freeze-teacher-epoch``);
+``scripts/train_manydepth_kitti.sh`` carries the published values. It logs
+each step's metrics and saves ``manydepth.pth.tar`` each epoch, without
+validation, on one process.
 
 Example (reference scripts/train_resnet18_depth_256.sh):
   python -m sc_sfmlearner_release_tpu_torch.train $DATA_ROOT --resnet-layers 18 \\
@@ -116,8 +116,6 @@ from .training.step import METRIC_KEYS
 from .utils import AverageMeter, enable_nan_debugging, make_logger, tensor2array, trace
 
 TIME_LOG = "progress_log_time.csv"
-# ManyDepth's --min/max-depth-bin defaults, the only values taken.
-DEPTH_BINS = (0.1, 20.0)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -241,11 +239,6 @@ def build_parser() -> argparse.ArgumentParser:
     md.add_argument("--min-depth", type=float, default=0.1)
     md.add_argument("--max-depth", type=float, default=100.0)
     md.add_argument("--num-depth-bins", type=int, default=96)
-    md.add_argument("--min-depth-bin", type=float, default=DEPTH_BINS[0],
-                    help="the public options' bins, which its trainer's adaptive trackers "
-                    "(from 0.1 and 10) replace from the first step: only the defaults are "
-                    "taken")
-    md.add_argument("--max-depth-bin", type=float, default=DEPTH_BINS[1])
     md.add_argument("--disparity-smoothness", type=float, default=1e-3)
     md.add_argument("--freeze-teacher-epoch", type=int, default=15,
                     help="from this epoch on the teacher and the pose network are frozen: "
@@ -453,6 +446,42 @@ def _write_rows(path: str, rows, mode: str = "a") -> None:
         csv.writer(f, delimiter="\t").writerows(rows)
 
 
+def _run_dir(args, is_main: bool = True) -> str:
+    """The experiment directory, ``checkpoints/<name>/<timestamp>/``, made
+    by process 0."""
+    save_path = os.path.join("checkpoints", args.name,
+                             datetime.datetime.now().strftime("%m-%d-%H:%M"))
+    if is_main:
+        os.makedirs(save_path, exist_ok=True)
+        print(f"=> will save everything to {save_path}")
+    return save_path
+
+
+def _train_loader(args, device: torch.device, train_set):
+    """The shuffled training batches of this process's data group (its rows
+    at full width; the steps cut the columns), the epoch size in steps, and
+    ``--fused-steps`` clamped to it."""
+    loader = BatchLoader(train_set, args.batch_size, shuffle=True, num_workers=args.workers,
+                         drop_last=True, seed=args.seed, pin_memory=device.type == "cuda",
+                         process_index=distributed.data_index(),
+                         process_count=distributed.data_count())
+    epoch_size = args.epoch_size or len(loader)
+    fused = max(args.fused_steps, 1)
+    if fused > 1 and fused > epoch_size:
+        # Trailing partial groups are dropped: a group larger than the
+        # epoch would train zero steps per epoch.
+        print(f"=> clamping --fused-steps {fused} to epoch size {epoch_size}")
+        fused = max(1, epoch_size)
+    return loader, epoch_size, fused
+
+
+def _start_logs(args, save_path: str, full_header) -> None:
+    """The header rows of ``progress_log_full.csv`` (one row of the step's
+    metrics per optimizer step) and ``progress_log_time.csv``."""
+    _write_rows(os.path.join(save_path, args.log_full), [list(full_header)], "w")
+    _write_rows(os.path.join(save_path, TIME_LOG), [["step", "data_wait_s", "step_s"]], "w")
+
+
 def _check_layout(args, device: torch.device, train_set) -> None:
     """The rules of ``--spatial-shards`` and ``--fused-steps`` under
     ``--distributed`` that need no process group; a SystemExit naming the
@@ -516,11 +545,7 @@ def _train(args, device: torch.device, datasets) -> int:
     if args.debug_nans:
         enable_nan_debugging()
 
-    timestamp = datetime.datetime.now().strftime("%m-%d-%H:%M")
-    save_path = os.path.join("checkpoints", args.name, timestamp)
-    if is_main:
-        os.makedirs(save_path, exist_ok=True)
-        print(f"=> will save everything to {save_path}")
+    save_path = _run_dir(args, is_main)
 
     tb_writer = None
     output_writers = []
@@ -542,22 +567,11 @@ def _train(args, device: torch.device, datasets) -> int:
     train_set, val_set = datasets
     print(f"{len(train_set)} samples found in {len(train_set.scenes)} train scenes")
     print(f"{len(val_set)} samples found in {len(val_set.scenes)} valid scenes")
-    pin = device.type == "cuda"
-    # The data group's rows at full width; the steps cut the columns.
-    rows = {"process_index": distributed.data_index(), "process_count": groups}
-    train_loader = BatchLoader(train_set, args.batch_size, shuffle=True,
-                               num_workers=args.workers, drop_last=True, seed=args.seed,
-                               pin_memory=pin, **rows)
+    train_loader, epoch_size, fused = _train_loader(args, device, train_set)
     val_loader = BatchLoader(val_set, args.batch_size, shuffle=False,
                              num_workers=args.workers, drop_last=False, seed=args.seed,
-                             pin_memory=pin, **rows)
-    epoch_size = args.epoch_size or len(train_loader)
-    fused = max(args.fused_steps, 1)
-    if fused > 1 and fused > epoch_size:
-        # Trailing partial groups are dropped: a group larger than the
-        # epoch would train zero steps per epoch.
-        print(f"=> clamping --fused-steps {fused} to epoch size {epoch_size}")
-        fused = max(1, epoch_size)
+                             pin_memory=device.type == "cuda",
+                             process_index=distributed.data_index(), process_count=groups)
 
     # ---- models / state --------------------------------------------------
     disp_net, pose_net = _networks(args)
@@ -602,11 +616,8 @@ def _train(args, device: torch.device, datasets) -> int:
     if is_main:
         _write_rows(os.path.join(save_path, args.log_summary),
                     [["train_loss", "validation_loss"]], "w")
-        _write_rows(os.path.join(save_path, args.log_full),
-                    [["train_loss", "photo_loss", "smooth_loss",
-                      "geometry_consistency_loss"]], "w")
-        _write_rows(os.path.join(save_path, TIME_LOG), [["step", "data_wait_s", "step_s"]],
-                    "w")
+        _start_logs(args, save_path, ["train_loss", "photo_loss", "smooth_loss",
+                                      "geometry_consistency_loss"])
 
     logger = make_logger(args.epochs, epoch_size, len(val_loader), style=args.log_style,
                          is_main=is_main)
@@ -699,11 +710,6 @@ def _manydepth_rules(args) -> None:
     if args.sequence_length != 3 or args.resnet_layers != 18:
         raise SystemExit("--arch manydepth trains ResNet-18 networks on 3-frame snippets "
                          "(frames 0, -1, +1)")
-    if (args.min_depth_bin, args.max_depth_bin) != DEPTH_BINS:
-        raise SystemExit("--arch manydepth takes --min-depth-bin and --max-depth-bin at their "
-                         f"defaults {DEPTH_BINS[0]} and {DEPTH_BINS[1]} alone: as in the public "
-                         "trainer, the adaptive depth-bin trackers (from 0.1 and 10) give the "
-                         "bins from the first step")
 
 
 def _train_manydepth(args, device: torch.device, train_set) -> int:
@@ -719,15 +725,9 @@ def _train_manydepth(args, device: torch.device, train_set) -> int:
                                      make_manydepth_train_step, make_trackers)
 
     _manydepth_rules(args)
-    save_path = os.path.join("checkpoints", args.name,
-                             datetime.datetime.now().strftime("%m-%d-%H:%M"))
-    os.makedirs(save_path, exist_ok=True)
-    print(f"=> will save everything to {save_path}")
+    save_path = _run_dir(args)
     print(f"{len(train_set)} samples found in {len(train_set.scenes)} train scenes")
-    loader = BatchLoader(train_set, args.batch_size, shuffle=True, num_workers=args.workers,
-                         drop_last=True, seed=args.seed, pin_memory=device.type == "cuda")
-    epoch_size = args.epoch_size or len(loader)
-    fused = max(1, min(args.fused_steps, epoch_size))
+    loader, epoch_size, fused = _train_loader(args, device, train_set)
     model = ManyDepth(args.resnet_layers, args.num_depth_bins,
                       generator=torch.Generator().manual_seed(args.seed))
     if args.with_pretrain:  # the public --weights_init pretrained: every ResNet from ImageNet
@@ -757,8 +757,7 @@ def _train_manydepth(args, device: torch.device, train_set) -> int:
                                                     trackers, teacher)
 
     optimizer, train_step = build(args.freeze_teacher_epoch > 0)
-    _write_rows(os.path.join(save_path, args.log_full), [list(MANYDEPTH_KEYS)], "w")
-    _write_rows(os.path.join(save_path, TIME_LOG), [["step", "data_wait_s", "step_s"]], "w")
+    _start_logs(args, save_path, MANYDEPTH_KEYS)
     dispatcher = _Dispatcher(device, fused, args.profile_dir)
     for epoch in range(args.epochs):
         if epoch == args.freeze_teacher_epoch and epoch > 0:

@@ -65,25 +65,18 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .. import disable_tf32, resolve_device
-from ..data.device_augment import DeviceAugment, resize_nchw, step_generator
+from .. import resolve_device
+from ..data.device_augment import DeviceAugment, resize_nchw
 from ..models.manydepth import ManyDepth
-from ..ops import KERNEL_WRAPPERS, warp_sample
-from ..ops.cost_volume import cost_volume, depth_bins
+from ..ops import warp_sample
+from ..ops.cost_volume import depth_bins
 from ..ops.geometry import transformation_from_parameters
 from ..ops.losses import (automask, disp_to_depth, edge_aware_smoothness, masked_mean,
                           reprojection_loss)
-from ..utils import profiling
-from .state import optimizer_step
-from .step import SNIPPET_KEYS, _check_stacked, _GraphedSteps, _to_device, conv_autocast
+from .step import conv_autocast, dispatch
 
 METRIC_KEYS = ("loss", "mono_loss", "multi_loss", "confident_pct", "masked_pct", "bins_min",
                "bins_max")
-# The counters a traced dispatch records (``utils/profiling.py``), from these metrics.
-COUNTERS = {"cost_volume.confident_pct": "confident_pct",
-            "consistency.masked_pct": "masked_pct",
-            "depth_bins.min": "bins_min", "depth_bins.max": "bins_max"}
-WRAPPERS = KERNEL_WRAPPERS + (cost_volume,)
 MEAN, STD = 0.45, 0.225
 STATIC_BELOW, EMPTY_BELOW = 0.25, 0.5
 NOISE = 1e-5
@@ -327,63 +320,28 @@ def manydepth_loss(model: ManyDepth, snippet, trackers: torch.Tensor, cfg: ManyD
     return total, metrics, new
 
 
-class ManyDepthStep:
-    """``step(batch) -> metrics`` (:data:`METRIC_KEYS`, detached), over
-    ``trackers`` (``[min, max]`` on the device, updated by every step); see
-    :func:`make_manydepth_train_step`."""
-
-    def __init__(self, run: Callable, trackers: torch.Tensor):
-        self.run, self.trackers = run, trackers
-
-    def __call__(self, batch) -> Dict[str, torch.Tensor]:
-        metrics = self.run(batch)
-        if profiling.recording():
-            _record_counters(metrics)
-        return metrics
-
-
-def _record_counters(metrics: Dict[str, torch.Tensor]) -> None:
-    """The step's counters from a traced dispatch's metrics: the copy to
-    the host is queued here and read when the counters are (no wait now)."""
-    values = torch.stack([metrics[k].float().reshape(-1).mean() for k in COUNTERS.values()])
-    host = values.to("cpu", non_blocking=True)
-    done = None
-    if values.is_cuda:
-        done = torch.cuda.Event()
-        done.record()
-
-    def read() -> Dict[str, float]:
-        if done is not None:
-            done.synchronize()
-        return dict(zip(COUNTERS, host.tolist()))
-
-    profiling.counter_later(read)
-
-
 def make_manydepth_train_step(
     model: ManyDepth, optimizer: torch.optim.Optimizer, cfg: ManyDepthConfig = ManyDepthConfig(),
     device=None, precision: str = "bf16", augment_fn: Optional[MatchingAugment] = None,
     aug_seed: int = 0, fused_steps: int = 1, trackers: Optional[torch.Tensor] = None,
     train_teacher: bool = True,
-) -> ManyDepthStep:
+) -> Callable[[Dict], Dict[str, torch.Tensor]]:
     """ManyDepth's train step over ``model`` and ``optimizer`` (Adam over
-    all three networks), as ``make_train_step`` composes SC-Depth's: raw
-    batches (uint8 from a packed loader) on the device, ``augment_fn`` (a
-    :class:`MatchingAugment`: the augmentation, the resize and the step's
-    draws, from the CPU generator of (``aug_seed``, step)), one optimizer
-    step, the trackers' update. ``fused_steps=K > 1`` takes K stacked
-    batches a call: on CUDA one CUDA-graph replay of K steps
-    (``_GraphedSteps``, the optimizer ``capturable``), on the CPU K eager
-    steps. ``trackers`` (``make_trackers``'s by default) is the state the
-    step updates in place; ``train_teacher=False`` is the public code's
-    frozen teacher (its loss, its gradients and the trackers' updates
-    off)."""
-    if fused_steps < 1:
-        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+    all three networks): ManyDepth's loss, the trackers' update and one
+    optimizer step a snippet, dispatched as SC-Depth's is
+    (:func:`~.step.dispatch`: raw batches, uint8 from a packed loader, on
+    the device, ``augment_fn`` a :class:`MatchingAugment` drawing from the
+    CPU generator of (``aug_seed``, step); ``fused_steps=K > 1`` takes K
+    stacked batches a call, on CUDA one CUDA-graph replay of K steps with a
+    ``capturable`` optimizer, on the CPU K eager steps). ``trackers``
+    (``make_trackers``'s by default) is the state the step updates in
+    place, and the returned step's ``.trackers``; ``train_teacher=False`` is
+    the public code's frozen teacher (its loss, its gradients and the
+    trackers' updates off). Returns ``step(batch) -> metrics``
+    (:data:`METRIC_KEYS`, detached)."""
     if not isinstance(augment_fn, MatchingAugment):
         raise TypeError("ManyDepth's step takes its draws from a MatchingAugment")
     device = resolve_device(device)
-    disable_tf32()
     model.to(device)
     trackers = make_trackers(cfg, device) if trackers is None else trackers
 
@@ -397,29 +355,6 @@ def make_manydepth_train_step(
         optimizer.step()
         return metrics
 
-    if fused_steps > 1 and device.type == "cuda":
-        if not all(g.get("capturable") for g in optimizer.param_groups):
-            raise ValueError("fused_steps > 1 on CUDA needs a capturable Adam")
-        return ManyDepthStep(_GraphedSteps(fused_steps, device, optimizer, update, augment_fn,
-                                           aug_seed, METRIC_KEYS, WRAPPERS), trackers)
-
-    step, counted_state = None, None
-
-    def one(batch) -> Dict[str, torch.Tensor]:
-        nonlocal step, counted_state
-        if optimizer.state is not counted_state:
-            step, counted_state = optimizer_step(optimizer), optimizer.state
-        raw = {key: _to_device(batch[key], device) for key in SNIPPET_KEYS}
-        metrics = update(augment_fn(step_generator(aug_seed, step), raw))
-        step += 1
-        return metrics
-
-    if fused_steps == 1:
-        return ManyDepthStep(one, trackers)
-
-    def fused(batches) -> Dict[str, torch.Tensor]:
-        _check_stacked(batches, fused_steps)
-        rows = [one({key: batches[key][i] for key in SNIPPET_KEYS}) for i in range(fused_steps)]
-        return {key: torch.stack([r[key] for r in rows]) for key in METRIC_KEYS}
-
-    return ManyDepthStep(fused, trackers)
+    step = dispatch(update, optimizer, device, augment_fn, aug_seed, fused_steps, METRIC_KEYS)
+    step.trackers = trackers
+    return step

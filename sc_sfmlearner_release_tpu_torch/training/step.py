@@ -206,41 +206,16 @@ def make_train_step(
 
     ``remat`` recomputes the activations of depth, pose and the loss in the
     backward (:func:`total_loss`); the running statistics still move once
-    per step. ``augment_fn`` (``data.device_augment.make_device_augment``)
-    takes the raw batch in its own dtype (uint8 from a packed loader) on
-    the device, with the CPU generator of (``aug_seed``, step), the step
-    being the optimizer's count before the update: it is read from the
-    optimizer at the first call, and again whenever the optimizer's state
-    has been replaced (``load_state_dict``, as a restore does), and counted
-    on the host in between, so no step waits for the card.
-
-    ``fused_steps=K > 1`` returns a step that takes K batches stacked on a
-    new leading axis (``tgt [K, B, H, W, 3]``, ``refs [K, B, N, H, W, 3]``,
-    ``intrinsics [K, B, 3, 3]``) and runs K optimizer steps per call, the
-    same steps as K calls of the unfused step (step ``s + k`` draws its
-    augmentation from the generator of (``aug_seed``, ``s + k``)); its
-    metrics have a leading ``[K]`` axis. On the CPU it runs them eagerly.
-    On CUDA the K steps are one CUDA graph (:class:`_GraphedSteps`), which
-    needs ``make_optimizer(..., capturable=True)`` and, with
-    ``augment_fn``, a :class:`~..data.device_augment.DeviceAugment`.
+    per step. ``augment_fn``, ``aug_seed`` and ``fused_steps`` are
+    :func:`dispatch`'s (``fused_steps=K > 1`` on CUDA needs
+    ``make_optimizer(..., capturable=True)``).
 
     Moves both networks to ``device``. Returns ``train_step(batch) ->
     metrics`` (detached 0-d tensors: ``loss``, ``photo_loss``,
-    ``smooth_loss``, ``geometry_loss``).
+    ``smooth_loss``, ``geometry_loss``; ``[K]`` when fused).
     """
-    if fused_steps < 1:
-        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
     device = resolve_device(device)
     _check_precision(precision)
-    fused_on_card = fused_steps > 1 and device.type == "cuda"
-    if fused_on_card:
-        if not all(g.get("capturable") for g in optimizer.param_groups):
-            raise ValueError("fused_steps > 1 on CUDA captures the optimizer's update in a "
-                             "CUDA graph: build it with make_optimizer(..., capturable=True)")
-        if augment_fn is not None and not hasattr(augment_fn, "host_map"):
-            raise TypeError("fused_steps > 1 on CUDA needs an augment_fn with host_map and "
-                            "apply_map (data.device_augment.make_device_augment)")
-    disable_tf32()
     disp_net.to(device)
     pose_net.to(device)
     params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -266,8 +241,50 @@ def make_train_step(
         optimizer.step()
         return metrics
 
-    if fused_on_card:
-        return _GraphedSteps(fused_steps, device, optimizer, update, augment_fn, aug_seed)
+    return dispatch(update, optimizer, device, augment_fn, aug_seed, fused_steps, METRIC_KEYS)
+
+
+def dispatch(
+    update: Callable[[Batch], Dict[str, torch.Tensor]], optimizer: torch.optim.Optimizer,
+    device: torch.device, augment_fn, aug_seed: int, fused_steps: int,
+    metric_keys: Tuple[str, ...],
+) -> Callable[[Batch], Dict[str, torch.Tensor]]:
+    """A model's train step from its ``update``: one optimizer step of
+    ``optimizer`` on a snippet on ``device`` (a resolved device), returning
+    the step's metrics named ``metric_keys`` (detached 0-d tensors).
+
+    The raw batch goes to the device in its own dtype (uint8 from a packed
+    loader); ``augment_fn`` (``data.device_augment.make_device_augment``,
+    or a wrapper of it with the same methods) takes it there with the CPU
+    generator of (``aug_seed``, step), the step being the optimizer's count
+    before the update: it is read from the optimizer at the first call, and
+    again whenever the optimizer's state has been replaced
+    (``load_state_dict``, as a restore does), and counted on the host in
+    between, so no step waits for the card. Without ``augment_fn`` the raw
+    batch is cast to float.
+
+    ``fused_steps=K > 1`` returns a step that takes K batches stacked on a
+    new leading axis (``tgt [K, B, H, W, 3]``, ``refs [K, B, N, H, W, 3]``,
+    ``intrinsics [K, B, 3, 3]``) and runs K optimizer steps per call, the
+    same steps as K calls of the unfused step (step ``s + k`` draws its
+    augmentation from the generator of (``aug_seed``, ``s + k``)); its
+    metrics have a leading ``[K]`` axis. On the CPU it runs them eagerly.
+    On CUDA the K steps are one CUDA graph (:class:`_GraphedSteps`), which
+    needs a capturable optimizer (``capturable=True``) and, with
+    ``augment_fn``, one with ``host_map`` and ``apply_map``.
+    """
+    if fused_steps < 1:
+        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+    disable_tf32()
+    if fused_steps > 1 and device.type == "cuda":
+        if not all(g.get("capturable") for g in optimizer.param_groups):
+            raise ValueError("fused_steps > 1 on CUDA captures the optimizer's update in a "
+                             "CUDA graph: build it with capturable=True")
+        if augment_fn is not None and not hasattr(augment_fn, "host_map"):
+            raise TypeError("fused_steps > 1 on CUDA needs an augment_fn with host_map and "
+                            "apply_map (data.device_augment.make_device_augment)")
+        return _GraphedSteps(fused_steps, device, optimizer, update, augment_fn, aug_seed,
+                             metric_keys)
 
     step, counted_state = None, None
 
@@ -292,7 +309,7 @@ def make_train_step(
         _check_stacked(batches, fused_steps)
         per_step = [train_step({k: batches[k][i] for k in SNIPPET_KEYS})
                     for i in range(fused_steps)]
-        return {k: torch.stack([m[k] for m in per_step]) for k in METRIC_KEYS}
+        return {k: torch.stack([m[k] for m in per_step]) for k in metric_keys}
 
     return fused_step
 
@@ -333,8 +350,9 @@ class _GraphedSteps:
     failed capture or replay raises; nothing falls back to the eager step.
 
     ``metric_keys`` names the metrics ``update`` returns (SC-Depth's four by
-    default), ``wrappers`` the kernel wrappers whose launches a replay
-    counts; the augmentation's ``map_width`` sizes the static map buffer.
+    default); a replay counts the launches of every wrapper in
+    ``ops.KERNEL_WRAPPERS``; the augmentation's ``map_width`` sizes the
+    static map buffer.
 
     Spans (``utils.profiling``, recorded under a profiler): ``step.wait_turn``
     around the wait for the replay two calls back, ``step.stage`` around the
@@ -347,10 +365,10 @@ class _GraphedSteps:
 
     def __init__(self, k: int, device: torch.device, optimizer: torch.optim.Optimizer,
                  update: Callable[[Batch], Dict[str, torch.Tensor]], augment_fn, aug_seed: int,
-                 metric_keys=METRIC_KEYS, wrappers=KERNEL_WRAPPERS):
+                 metric_keys=METRIC_KEYS):
         self.k, self.device, self.optimizer = k, device, optimizer
         self.update, self.augment_fn, self.aug_seed = update, augment_fn, aug_seed
-        self.metric_keys, self.wrappers = metric_keys, wrappers
+        self.metric_keys = metric_keys
         self.step = self.counted_state = None
         self.graph, self.warm = None, False
         self.inputs = self.maps = self.metrics = None
@@ -382,7 +400,7 @@ class _GraphedSteps:
                 self._capture()
                 setup = "setup.capture_s"
             self.graph.replay()
-            for fn, n in zip(self.wrappers, self.launches):
+            for fn, n in zip(KERNEL_WRAPPERS, self.launches):
                 fn.launches += n
         done = torch.cuda.Event()
         done.record(stream)
@@ -431,7 +449,7 @@ class _GraphedSteps:
             self.metrics[i].copy_(torch.stack([metrics[k] for k in self.metric_keys]))
 
     def _capture(self) -> None:
-        before = [fn.launches for fn in self.wrappers]
+        before = [fn.launches for fn in KERNEL_WRAPPERS]
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # Thread-local: the loader's threads pin host memory meanwhile.
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
@@ -439,8 +457,8 @@ class _GraphedSteps:
         profiling.counter("step.graph_kernels",
                           profiling.graph_kernel_nodes(graph.raw_cuda_graph()))
         graph.instantiate()  # what the capture's end does without keep_graph
-        self.launches = [fn.launches - n for fn, n in zip(self.wrappers, before)]
-        for fn, n in zip(self.wrappers, before):
+        self.launches = [fn.launches - n for fn, n in zip(KERNEL_WRAPPERS, before)]
+        for fn, n in zip(KERNEL_WRAPPERS, before):
             fn.launches = n
         self.graph = graph
 

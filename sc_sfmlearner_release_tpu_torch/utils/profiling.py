@@ -13,10 +13,7 @@ own spans and counters:
   on the profiler's clock.
 * ``counter(name, value)`` / ``counters()``: plain values the program sets
   at most once a dispatch (the set-up's seconds, the captured graph's
-  kernels), always on. ``counter_later(read)`` adds counters whose values
-  ``read()`` gives when ``counters()`` is called (a copy from the card still
-  in flight, so the dispatch that records them waits for nothing);
-  ``recording()`` says whether a ``torch.profiler`` runs.
+  kernels), always on.
 * ``graph_kernel_nodes(raw_graph)``: the kernel nodes of a captured CUDA
   graph.
 * ``enable_nan_debugging()``: ``torch.autograd.set_detect_anomaly(True)``,
@@ -38,7 +35,7 @@ import statistics
 import subprocess
 import threading
 import time
-from typing import Callable, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -125,7 +122,6 @@ class Recorder:
     def __init__(self):
         self.spans: List[Span] = []
         self.counters: Dict[str, float] = {}
-        self.later: List[Callable[[], Dict[str, float]]] = []
         self.on = False
         self._lock = threading.Lock()
         self._ids = itertools.count()
@@ -142,14 +138,6 @@ class Recorder:
 
     def counter(self, name: str, value: float) -> None:
         self.counters[name] = value
-
-    def counter_later(self, read: Callable[[], Dict[str, float]]) -> None:
-        self.later.append(read)
-
-    def read_counters(self) -> Dict[str, float]:
-        while self.later:
-            self.counters.update(self.later.pop(0)())
-        return dict(self.counters)
 
     def _turn_on(self) -> None:
         with self._lock:
@@ -193,16 +181,8 @@ counter = RECORDER.counter
 aligned = RECORDER.aligned
 
 
-counter_later = RECORDER.counter_later
-
-
 def counters() -> Dict[str, float]:
-    return RECORDER.read_counters()
-
-
-def recording() -> bool:
-    """Whether a ``torch.profiler`` runs (spans are recorded)."""
-    return bool(_autograd_profiler._is_profiler_enabled)
+    return dict(RECORDER.counters)
 
 
 def _write_spans(path: str, recorder: Recorder = RECORDER) -> None:

@@ -30,7 +30,6 @@ from sc_sfmlearner_release_tpu_torch import data
 from sc_sfmlearner_release_tpu_torch.data import native_io, transforms
 from sc_sfmlearner_release_tpu_torch.data.loader import PREFETCH
 from sc_sfmlearner_release_tpu_torch.parallel import device_prefetch
-from sc_sfmlearner_release_tpu_torch.utils import profiling
 
 
 H, W = 24, 40
@@ -341,7 +340,6 @@ def test_batch_loader_loads_across_batch_boundaries():
     assert [int(b["x"][0, 0]) for b in batches] == list(range(0, 48, 2))
     assert ds.most >= 6  # one batch at a time would load at most 2
     assert len(ds.threads) <= 8
-    assert profiling.counters()["data.in_flight_mean"] > 2
 
 
 @pytest.mark.parametrize("workers", [1, 8])

@@ -1,14 +1,14 @@
 """``ops/decoder_input.py`` on the CPU: the plain version is the composition
 the decoder ran before the kernel (nearest upsample, ``torch.cat``,
 ``reflect_pad1``), bit for bit, forward and gradients; ``DepthDecoder``'s
-outputs and gradients are unchanged; the counter ``nets.decoder_fused_pct``
-reads 0; the wrapper's device route (stubbed: there is no card here) goes
-through the autograd Function, in the convolution's dtype and channels-last,
-takes one halo column a side on width shards, and refuses what the kernel
-cannot take; the kernel's index arithmetic, written out in Python, gives a
-width shard's columns of the whole image's input and gathers the adjoint.
-The kernel itself is held against the plain version on the card by
-``chip_smoke.py``'s decoder-input phase.
+outputs and gradients are unchanged; the wrapper's device route (stubbed:
+there is no card here) goes through the autograd Function, in the
+convolution's dtype and channels-last, takes one halo column a side on
+width shards, and refuses what the kernel cannot take; the kernel's index
+arithmetic, written out in Python, gives a width shard's columns of the
+whole image's input and gathers the adjoint. The kernel itself is held
+against the plain version on the card by ``chip_smoke.py``'s
+decoder-input phase.
 """
 
 import importlib
@@ -17,12 +17,10 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from sc_sfmlearner_release_tpu_torch.models import DispNet
 from sc_sfmlearner_release_tpu_torch.models.disp_net import ALPHA, BETA, SCALES, DepthDecoder
 from sc_sfmlearner_release_tpu_torch.models.resnet import encoder_channels
 from sc_sfmlearner_release_tpu_torch.parallel import distributed
 from sc_sfmlearner_release_tpu_torch.parallel.spatial import reflect_pad1
-from sc_sfmlearner_release_tpu_torch.utils import profiling
 
 di = importlib.import_module("sc_sfmlearner_release_tpu_torch.ops.decoder_input")
 
@@ -118,14 +116,6 @@ def test_depth_decoder_on_the_cpu_is_unchanged(head, layers, autocast):
         assert a.dtype == b.dtype and torch.equal(a, b)
     for a, b in zip(got_grads, want_grads):
         assert torch.equal(a, b)
-
-
-def test_decoder_fused_pct_reads_0_on_the_cpu():
-    profiling.counter("nets.decoder_fused_pct", -1.0)
-    net = DispNet(18, generator=torch.Generator().manual_seed(0))
-    with torch.no_grad():
-        net(torch.rand(1, 64, 64, 3))
-    assert profiling.counters()["nets.decoder_fused_pct"] == 0.0
 
 
 @pytest.fixture

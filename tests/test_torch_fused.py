@@ -25,6 +25,8 @@ variables with spread heads):
   * ``fused_steps=3`` with the device augmentation on uint8 frames against
     three unfused calls: on the CPU the same eager ops, so equal metrics,
     step count and parameters.
+  * the shared dispatch's input checks (``training/step.py::dispatch``),
+    for SC-Depth's step and ManyDepth's alike: K batches stacked, K >= 1.
 
 The CLI on the packed tree of ``test_torch_train_cli.py`` with ``--packed
 --device-augment``: three epochs of two steps with ``--fused-steps 2``
@@ -55,9 +57,11 @@ from sc_sfmlearner_release_tpu_torch.data.device_augment import (
     AugmentConfig, make_device_augment, step_generator,
 )
 from sc_sfmlearner_release_tpu_torch.models.convert import to_jax_variables
+from sc_sfmlearner_release_tpu_torch.models.manydepth import ManyDepth
 from sc_sfmlearner_release_tpu_torch.training import (
     LossConfig, make_optimizer, make_train_step,
 )
+from sc_sfmlearner_release_tpu_torch.training import manydepth as md
 from sc_sfmlearner_release_tpu_torch.training.state import optimizer_step
 from sc_sfmlearner_release_tpu_torch.training.step import METRIC_KEYS
 from sc_sfmlearner_release_tpu_torch.utils import trace
@@ -177,14 +181,32 @@ def test_fused_metrics_have_a_leading_step_axis():
     assert len(set(fused["loss"].tolist())) == 3
 
 
-def test_fused_step_checks_its_input():
-    disp, pose = _port_nets()
-    step = make_train_step(disp, pose, make_optimizer(disp, pose), device="cpu",
-                           precision="fp32", fused_steps=3)
+def _fused_step(arch, k):
+    """``arch``'s train step on the CPU with ``fused_steps=k``: SC-Depth's,
+    or ManyDepth's (64x96, 8 depth bins, its matching augmentation)."""
+    if arch == "sc_depth":
+        disp, pose = _port_nets()
+        return make_train_step(disp, pose, make_optimizer(disp, pose), device="cpu",
+                               precision="fp32", fused_steps=k)
+    model = ManyDepth(18, 8)
+    augment = md.MatchingAugment(make_device_augment(AugmentConfig()), 64, 96)
+    return md.make_manydepth_train_step(
+        model, md.make_manydepth_optimizer(model),
+        md.ManyDepthConfig(height=64, width=96, num_depth_bins=8), "cpu", "fp32", augment,
+        fused_steps=k)
+
+
+@pytest.mark.parametrize("arch", ["sc_depth", "manydepth"])
+def test_fused_step_checks_its_input(arch):
+    step = _fused_step(arch, 3)
     with pytest.raises(ValueError, match="expected 3 batches stacked"):
         step(_uint8_batches(2))
+
+
+@pytest.mark.parametrize("arch", ["sc_depth", "manydepth"])
+def test_fused_steps_below_one_are_refused(arch):
     with pytest.raises(ValueError, match="fused_steps must be >= 1"):
-        make_train_step(disp, pose, make_optimizer(disp, pose), device="cpu", fused_steps=0)
+        _fused_step(arch, 0)
 
 
 def test_make_optimizer_passes_capturable_through():
